@@ -1,0 +1,156 @@
+"""Permissioned-DLT model registry (paper §4.1.1-4.1.2).
+
+The ledger stores only fingerprints of model updates (SHA-256 over the
+weight bytes), never weights or data: an append-only hash chain with an
+incremental Merkle log over it, and provenance links from every merged
+model to the fingerprints it was merged from.
+
+Fingerprints equal the JAX package's for the same bytes: the hash covers
+``str(treedef)`` of the JAX pytree (reproduced by `treedef_str`), then
+each leaf's shape, dtype and bytes in JAX leaf order.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import time
+from dataclasses import asdict, dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.merkle import MerkleLog
+from repro_torch.pytree import tree_flatten, treedef_str
+
+GENESIS = "0" * 64
+
+__all__ = ["GENESIS", "ModelRegistry", "RoundRecord", "Transaction",
+           "fingerprint_pytree"]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def fingerprint_pytree(params) -> str:
+    """SHA-256 over the canonical byte stream of a weight pytree."""
+    h = hashlib.sha256()
+    leaves, spec = tree_flatten(params)
+    h.update(treedef_str(spec).encode())
+    for leaf in leaves:
+        arr = _host(leaf)
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+@dataclass(frozen=True)
+class Transaction:
+    index: int
+    prev_hash: str
+    kind: str                       # register | rolling_update
+    institution: str
+    model_fingerprint: str
+    arch_family: str
+    parents: tuple                  # parent fingerprints (provenance)
+    metadata: str                   # JSON: consensus round, DP trace, ...
+    timestamp: float
+
+    def hash(self) -> str:
+        payload = json.dumps(asdict(self), sort_keys=True).encode()
+        return hashlib.sha256(payload).hexdigest()
+
+
+@dataclass(frozen=True)
+class RoundRecord:
+    """One overlay round's DLT writes for `register_round_batch`: the
+    survivors' registrations (institution order), then the merged model's
+    rolling_update whose parents are exactly those fingerprints."""
+    arch_family: str
+    registrations: Sequence[tuple]        # (institution, params, metadata)
+    merged_institution: str
+    merged_params: Any
+    merged_metadata: Dict[str, Any]
+
+
+class ModelRegistry:
+    """One logical DLT.  `logical_clock=True` stamps transactions with a
+    monotone counter instead of `time.time()`, so two same-seed runs
+    produce byte-identical chains."""
+
+    def __init__(self, logical_clock: bool = False):
+        self.chain: List[Transaction] = []
+        self.logical_clock = logical_clock
+        self._merkle = MerkleLog()
+
+    def register(self, *, kind: str, institution: str, params,
+                 arch_family: str, parents: Sequence[str] = (),
+                 metadata: Optional[Dict[str, Any]] = None,
+                 timestamp: Optional[float] = None) -> Transaction:
+        if timestamp is None:
+            timestamp = (float(len(self.chain)) if self.logical_clock
+                         else time.time())
+        tx = Transaction(
+            index=len(self.chain),
+            prev_hash=self.chain[-1].hash() if self.chain else GENESIS,
+            kind=kind,
+            institution=institution,
+            model_fingerprint=fingerprint_pytree(params),
+            arch_family=arch_family,
+            parents=tuple(parents),
+            metadata=json.dumps(metadata or {}, sort_keys=True),
+            timestamp=timestamp,
+        )
+        self.chain.append(tx)
+        self._merkle.append(tx.hash())
+        return tx
+
+    def register_round_batch(self, rounds: Sequence[RoundRecord]
+                             ) -> List[Transaction]:
+        """Flush many rounds' DLT effects in one call, in the order the
+        eager per-round path writes them.  Each merged transaction commits
+        the Merkle root over everything before it as ``ledger_root``."""
+        merged_txs = []
+        for rec in rounds:
+            parents = []
+            for institution, params, meta in rec.registrations:
+                tx = self.register(kind="register", institution=institution,
+                                   params=params,
+                                   arch_family=rec.arch_family,
+                                   metadata=meta)
+                parents.append(tx.model_fingerprint)
+            merged_meta = dict(rec.merged_metadata)
+            merged_meta["ledger_root"] = self.merkle_root()
+            merged_txs.append(self.register(
+                kind="rolling_update", institution=rec.merged_institution,
+                params=rec.merged_params, arch_family=rec.arch_family,
+                parents=parents, metadata=merged_meta))
+        return merged_txs
+
+    def verify_chain(self) -> bool:
+        prev = GENESIS
+        for i, tx in enumerate(self.chain):
+            if tx.index != i or tx.prev_hash != prev:
+                return False
+            prev = tx.hash()
+        return True
+
+    def merkle_root(self) -> str:
+        return self._merkle.root()
+
+    def verify_log(self) -> bool:
+        """Chain links, Merkle state and every committed ``ledger_root``."""
+        if not self.verify_chain():
+            return False
+        rebuilt = MerkleLog()
+        for tx in self.chain:
+            if tx.kind == "rolling_update":
+                claimed = json.loads(tx.metadata).get("ledger_root")
+                if claimed is not None and claimed != rebuilt.root():
+                    return False
+            rebuilt.append(tx.hash())
+        return rebuilt.root() == self._merkle.root()

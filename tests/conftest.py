@@ -21,3 +21,5 @@ def pytest_configure(config):
         "markers",
         "pallas: compiles/interprets Pallas kernels (slow on CPU interpret; "
         "the TPU-target kernels are exercised via their jnp refs elsewhere)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
