@@ -1,0 +1,10 @@
+"""DBRX-132B [moe] — 16 experts top-4, fine-grained MoE [hf:databricks/dbrx-base]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b", family="moe",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=10752, vocab_size=100352, head_dim=128,
+    n_experts=16, top_k=4, rope_theta=500_000.0,
+    citation="hf:databricks/dbrx-base",
+)

@@ -62,6 +62,11 @@ class OverlayConfig:
     attack_schedule: Optional[Any] = None   # not ported yet: must be None
     secure_domain: str = "float"   # secure_mean arithmetic: "float" fp32
                                    # pads, or "int" exact Z_2^32 pads
+    merge_subtree: Optional[str] = "params"
+    # Only the MODEL is federated: when the stacked tree is a dict holding
+    # this key, the reference merges that subtree alone.  That mode (model
+    # plus optimizer state) is not ported yet and raises; bare param trees
+    # (this key absent, or None) are merged whole.
 
 
 def replicate_params(params: Pytree, n: int,
@@ -69,12 +74,12 @@ def replicate_params(params: Pytree, n: int,
                      jitter: float = 0.0) -> Pytree:
     """P identical (or jittered) replicas: the institutions start from a
     common registered architecture.  Jitter is drawn from `generator` on
-    the CPU, leaf by leaf in JAX leaf order."""
+    the generator's device, leaf by leaf in JAX leaf order."""
     def rep(x):
         out = x[None].expand((n,) + tuple(x.shape)).clone()
         if jitter and generator is not None and out.is_floating_point():
             noise = torch.randn(out.shape, generator=generator,
-                                dtype=out.dtype)
+                                dtype=out.dtype, device=generator.device)
             out = out + jitter * noise.to(out.device)
         return out
     return tree_map(rep, params)
@@ -162,6 +167,11 @@ class DecentralizedOverlay:
                ref: Optional[Pytree], round_index: int):
         """Publish + merge one round: returns (merged, published rows,
         merged row 0); the last two feed the ledger."""
+        sub = self.cfg.merge_subtree
+        if sub is not None and isinstance(stacked, dict) and sub in stacked:
+            raise NotImplementedError(
+                f"merging only the {sub!r} subtree of a stacked state is not "
+                f"ported to the PyTorch overlay yet")
         merged, published = _publish_merge(
             get_merge(self.cfg.merge), self.cfg.dp, stacked,
             self._merge_context(round_index, committed, key), ref)

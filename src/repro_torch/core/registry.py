@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.merkle import MerkleLog
+from repro_torch.core.merkle import MerkleLog, MerkleProof
 from repro_torch.pytree import tree_flatten, treedef_str
 
 GENESIS = "0" * 64
@@ -141,6 +141,48 @@ class ModelRegistry:
 
     def merkle_root(self) -> str:
         return self._merkle.root()
+
+    def inclusion_proof(self, index: int) -> MerkleProof:
+        """O(log n) audit path proving ``chain[index]`` is in the ledger
+        whose root is `merkle_root()`; verify with
+        ``merkle.verify_inclusion(tx.hash(), proof, root)``."""
+        return self._merkle.proof(index)
+
+    def root_at(self, n: int) -> str:
+        """Root of the n-transaction chain prefix: what a round's merged
+        transaction committed as ``ledger_root`` when the chain was n
+        long.  Rebuilds the prefix tree, O(n)."""
+        return self._prefix_log(n).root()
+
+    def inclusion_proof_at(self, index: int, n: int) -> MerkleProof:
+        """Audit path for ``chain[index]`` against the n-leaf prefix root
+        ``root_at(n)``: proves a merged round's parent registrations
+        against the ``ledger_root`` that round itself committed."""
+        if not 0 <= index < n <= len(self.chain):
+            raise IndexError(
+                f"prefix proof needs 0 <= index < n <= len(chain); got "
+                f"index={index}, n={n}, len={len(self.chain)}")
+        return self._prefix_log(n).proof(index)
+
+    def _prefix_log(self, n: int) -> MerkleLog:
+        if not 0 <= n <= len(self.chain):
+            raise IndexError(f"prefix length {n} out of range "
+                             f"[0, {len(self.chain)}]")
+        log = MerkleLog()
+        for tx in self.chain[:n]:
+            log.append(tx.hash())
+        return log
+
+    def clone(self) -> "ModelRegistry":
+        replica = ModelRegistry(logical_clock=self.logical_clock)
+        replica.chain = list(self.chain)
+        replica._rebuild_merkle()
+        return replica
+
+    def _rebuild_merkle(self) -> None:
+        self._merkle = MerkleLog()
+        for tx in self.chain:
+            self._merkle.append(tx.hash())
 
     def verify_log(self) -> bool:
         """Chain links, Merkle state and every committed ``ledger_root``."""

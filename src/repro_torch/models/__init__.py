@@ -1,1 +1,71 @@
-"""Models: the paper's 3-layer STIGMA CNN."""
+"""Model zoo dispatch: family -> implementation module.
+
+The dense transformer family is ported (`transformer.py`); the rwkv6
+(``ssm``) and hymba (``hybrid``) families are not yet (ROADMAP queue B
+items 7 and 8) and raise ``NotImplementedError``.  `stigma_cnn.py` is the
+paper's CNN, driven by `chaos.harness.CNNFederation`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def _module(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the rwkv6 family and its WKV6 kernel are not "
+            f"ported to PyTorch yet (ROADMAP queue B item 7)")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the hymba family and its selective-scan kernel "
+            f"are not ported to PyTorch yet (ROADMAP queue B item 8)")
+    from repro_torch.models import transformer
+    return transformer
+
+
+def param_specs(cfg: ModelConfig):
+    return _module(cfg).param_specs(cfg)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator):
+    return L.init_params(param_specs(cfg), generator)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return L.param_count(param_specs(cfg))
+
+
+def forward(cfg: ModelConfig, params, batch, *, impl: str = "auto",
+            remat: bool = False):
+    return _module(cfg).forward(cfg, params, batch, impl=impl, remat=remat)
+
+
+def forward_features(cfg: ModelConfig, params, batch, *, impl: str = "auto",
+                     remat: bool = False):
+    """(features (B,S,d), aux, head (d,V))."""
+    return _module(cfg).forward_features(cfg, params, batch, impl=impl,
+                                         remat=remat)
+
+
+def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int,
+                      device=None):
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    return _module(cfg).init_decode_state(cfg, batch_size, seq_len,
+                                          device=device)
+
+
+def decode_step(cfg: ModelConfig, params, state, tokens, pos):
+    return _module(cfg).decode_step(cfg, params, state, tokens, pos)
+
+
+def prefill(cfg: ModelConfig, params, batch, cache_seq_len: int, *,
+            impl: str = "auto"):
+    """(logits (B,S,V), populated decode state, aux): batched prompt
+    ingestion for serving (one forward pass instead of S decode steps)."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode/prefill")
+    return _module(cfg).prefill(cfg, params, batch, cache_seq_len, impl=impl)

@@ -8,7 +8,10 @@ port is installed:
 Tolerances: the Z_2^32 share-sum is exact; the float MPC round within
 atol = P * 1e-6 (the plain version sums the pads exactly in float64 and
 rounds once, the kernel in float32 pair by pair); the DP noise within rtol = 1e-5, atol = 1e-6 (log / cos of the
-card's libm against PyTorch's).
+card's libm against PyTorch's); flash attention within atol = rtol =
+2e-2 in bf16 and 2e-5 in fp32 (the JAX package's own bounds for its
+kernel against its plain version: the kernel sums in another order and
+rescales online).
 """
 import numpy as np
 import pytest
@@ -17,7 +20,11 @@ import torch
 from repro_torch.chaos.harness import CNNFederation
 from repro_torch.pytree import tree_flatten
 from repro_torch.kernels.dp import kernel as dp_kernel
+from repro_torch.kernels import _cuda
 from repro_torch.kernels.dp import ref as dp_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.secure_agg import kernel as agg_kernel
 from repro_torch.kernels.secure_agg import ref as agg_ref
 from repro_torch.privacy.accountant import DPConfig
@@ -117,3 +124,86 @@ def test_federation_on_card_matches_cpu(cuda, mode):
                     tree_flatten(cpu.stacked)[0]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
     assert gpu.overlay.registry.verify_log()
+
+
+# ----------------------------------------------------------------------
+# flash attention: the smoke's shapes, (B, S, Hq, Hkv, hd, dtype, causal,
+# window)
+FLASH_CASES = [
+    (1, 1000, 16, 8, 128, torch.bfloat16, True, 0),   # qwen3, ragged S
+    (2, 192, 6, 3, 32, torch.bfloat16, True, 0),
+    (2, 192, 6, 3, 32, torch.float32, True, 0),
+    (1, 512, 4, 1, 80, torch.bfloat16, True, 0),
+    (2, 256, 15, 5, 64, torch.bfloat16, True, 0),
+    (2, 256, 4, 2, 64, torch.float32, True, 16),
+    (2, 256, 4, 2, 64, torch.float32, True, 64),
+    (2, 256, 4, 2, 64, torch.float32, True, 100),
+    (1, 200, 4, 2, 64, torch.float32, False, 0),      # non-causal ragged
+]
+
+
+def _flash_inputs(B, S, Hq, Hkv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng([seed, B, S, Hq, Hkv, hd])
+    return [torch.from_numpy(rng.standard_normal(
+        (B, S, h, hd)).astype(np.float32)).to(device=device, dtype=dtype)
+        for h in (Hq, Hkv, Hkv)]
+
+
+def _flash_plain(q, k, v, causal, window):
+    return fa_ref.attention_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda, case):
+    B, S, Hq, Hkv, hd, dtype, causal, window = case
+    q, k, v = _flash_inputs(B, S, Hq, Hkv, hd, dtype, cuda)
+    before = fa_kernel.flash_attention_bhsd.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_bhsd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, causal, window).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_layout_entry_and_empty_rows(cuda):
+    """The (B, H, S, hd) entry on contiguous inputs, with Sq > Skv under a
+    window, so that some q rows have no key to attend to (they are 0)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 2, s, 64)).astype(np.float32)).to(cuda) for s in (96, 40, 40))
+    out = fa_kernel.flash_attention_bhsd(q, k, v, causal=True, window=8)
+    want = fa_ref.attention_reference(q, k, v, causal=True, window=8)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    assert bool((out[:, :, 48:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_kernel.flash_attention_bhsd(*(torch.zeros((1, 2, 8, 48),
+                                                     device=cuda),) * 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_bhsd(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_bhsd(*(q.half(),) * 3)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa_kernel.flash_attention_bhsd(q, q.transpose(2, 3), q)
+
+
+@pytest.mark.cuda
+def test_every_source_builds_into_its_own_library(cuda):
+    paths = {name: p for name, (p, _) in _cuda.build_all().items()}
+    assert set(paths) == set(_cuda.SOURCES) == {"secure_agg",
+                                                "flash_attention"}
+    assert len({p.name for p in paths.values()}) == len(paths)
+    assert all(p.exists() for p in paths.values())
+    assert "-fmad=false" in _cuda.nvcc_flags("secure_agg")
+    assert "-fmad=false" not in _cuda.nvcc_flags("flash_attention")
