@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # the smoke run
+    python3 chip_smoke.py --depth-probe   # the recurrent paths' depth cut
 
 Builds the port's CUDA kernels from this checkout (each
 ``src/repro_torch/csrc/*.cu`` into its own library for sm_90a, one nvcc
 per source, all started together), holds each kernel against its plain
-PyTorch version on the card, then drives the port's two paths at full
-width, each with every launch count set to 0 just before it and read just
+PyTorch version on the card, then drives the port's paths at full width,
+each with every launch count set to 0 just before it and read just
 after:
 
 * the paper's federation round (``CNNFederation.run_rounds``): P = 10
@@ -15,35 +16,51 @@ after:
   parameters per hospital), 3 rounds of secure_mean in the float domain,
   the int domain and the float domain with DP;
 * the federated LM serving path (train -> registry -> verified pull ->
-  serve): an ``LMFederation`` of qwen3-0.6b at its published width (28
-  layers, 596,049,920 parameters, random weights from a seed) runs one
-  round and publishes, a ``FederatedServer`` pulls the committed model
-  through the ledger's provenance gate and serves 16 greedy requests of
-  64-1024 prompt tokens (prefill through the flash-attention kernel, then
-  decode).
+  serve) for three families, each at its published width with random
+  weights from a seed: an ``LMFederation`` runs one round and publishes,
+  a ``FederatedServer`` pulls the committed model through the ledger's
+  provenance gate and serves 16 greedy requests of 64-1024 prompt tokens:
+  - qwen3-0.6b (28 layers, 596,049,920 parameters): prefill attention
+    through the flash-attention kernel;
+  - rwkv6-3b, cut from 32 to 12 layers: prefill and decode through the
+    WKV6 kernel;
+  - hymba-1.5b, cut from 32 to 17 layers: prefill attention through the
+    flash kernel, the mamba branch's scan through the selective-scan
+    kernel in prefill and decode.
+  The recurrent families' depth is the largest whose training round
+  peaks below 70 GiB on the 80 GB card; ``--depth-probe`` measures the
+  round's peak depth by depth up to the first that reaches it.
 
 Before the full-width paths, small runs on the card are held against the
 same runs on the CPU, and a mid-traffic hot-swap is checked for identity
-with a fresh engine.  Prints each kernel's time beside its bound, its
-plain version's time and a PyTorch library call's time where one exists,
-then a JSON line of kernels, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, without a CUDA device or outside the repository.
+with a fresh engine (dense and rwkv6).  Prints each kernel's time beside
+its bound, its plain version's time and a PyTorch library call's time
+where one exists, then a JSON line of kernels, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
+non-zero, printing no result, without a CUDA device or outside the
+repository.
 
 The script leaves PyTorch's TF32 settings at their defaults, as a user
 has them: the CNN's local step computes in IEEE float32 by itself, and the
-LM computes in bf16.
+LMs compute in bf16 (hymba's scan inputs in fp32).
 """
+import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# the recurrent paths train within a few GiB of the card's capacity:
+# segments that grow in place keep the allocator's fragmentation from
+# adding gigabytes on top of the peak (set before CUDA starts)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
@@ -79,11 +96,59 @@ FLASH_CASES = [
     (2, 256, 4, 2, 64, torch.float32, True, 100),
     (1, 200, 4, 2, 64, torch.float32, False, 0),      # non-causal ragged
 ]
+FLASH_CASES.append(
+    (1, 1152, 25, 5, 64, torch.bfloat16, True, 1024))  # hymba's prefill
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FLASH_TIMED = (1, 1024, 16, 8, 128)       # qwen3's prefill at S = 1024
-# the LM main path: qwen3-0.6b, harness defaults, 16 greedy requests
-LM_ARCH, N_REQUESTS, MAX_NEW, PROMPT_LO, PROMPT_HI = (
-    "qwen3-0.6b", 16, 32, 64, 1024)
+# WKV6 on the card vs its plain version: (B, T, H, hd, r/k/v dtype,
+# w dtype, nonzero s0, strided input)
+WKV6_CASES = [
+    (1, 1000, 40, 64, torch.bfloat16, torch.float32, False, False),  # rwkv6
+    (8, 1, 40, 64, torch.bfloat16, torch.float32, True, False),  # decode
+    (2, 77, 4, 32, torch.float32, torch.float32, True, False),
+    (2, 40, 3, 16, torch.bfloat16, torch.bfloat16, True, False),
+    (1, 33, 2, 128, torch.float32, torch.float32, True, False),
+    (2, 50, 4, 64, torch.bfloat16, torch.float32, True, True),
+]
+WKV6_TIMED = (1, 1024, 40, 64)            # rwkv6-3b's prefill at T = 1024
+# the selective scan on the card vs its plain version: (Bz, T, di, N,
+# dtype, nonzero h0)
+SSM_CASES = [
+    (1, 1152, 3200, 16, torch.float32, False),    # hymba's prefill
+    (8, 1, 3200, 16, torch.float32, True),        # decode
+    (2, 100, 1001, 16, torch.float32, True),      # ragged di
+    (2, 70, 515, 8, torch.bfloat16, True),
+    (1, 37, 96, 5, torch.float32, True),
+]
+SSM_TIMED = (1, 1152, 3200, 16)           # hymba-1.5b's prefill, 1024 + 128
+# kernel vs plain: bf16 y within the flash kernel's 2e-2 (atol = rtol);
+# fp32 y and the fp32 states within 1e-4 of the largest magnitude (the
+# kernels sum in another order than the plain versions)
+REC_TOL_BF16, REC_TOL_F32 = 2e-2, 1e-4
+# the LM main paths: harness defaults, 16 greedy requests each
+N_REQUESTS, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 64, 1024
+# (arch, depth, lr): published widths; the recurrent families' depth is
+# cut to the largest whose training round peaks below 70 GiB on one 80 GB
+# card (`python3 chip_smoke.py --depth-probe` measures the round's peak
+# depth by depth).  lr is the harness's 0.1 but for rwkv6, whose first
+# token is ill-conditioned (its WKV output is a sum of products with the
+# bonus u near 0, which the group norm scales up by up to 316x,
+# compounded over the layers, in the reference as in the port): at 0.1
+# one round leaves non-finite params at this depth, and at 1e-6 its
+# largest step is the size of hymba's at 0.1 (`--depth-probe` prints
+# both)
+LM_PATHS = [("qwen3-0.6b", 28, 0.1), ("rwkv6-3b", 12, 1e-6),
+            ("hymba-1.5b", 17, 0.1)]
+TRAIN_PEAK_LIMIT_GIB = 70.0
+# the LM kernels' sources and the TPU kernels they replace
+LM_KERNEL_SOURCES = {
+    "flash_attention_bhsd": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:75"),
+    "wkv6_bthd": ("src/repro_torch/csrc/wkv6.cu",
+                  "src/repro/kernels/rwkv6_scan/kernel.py:62"),
+    "ssm_scan_btd": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:56"),
+}
 
 
 def op_counts(kind, P, N, alive_rows):
@@ -130,6 +195,26 @@ def flash_bound(B, S, Hq, Hkv, hd, itemsize=2):
     nbytes = B * S * hd * (2 * Hq + 2 * Hkv) * itemsize
     flops = 4 * hd * B * Hq * S * (S + 1) / 2
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TC_FLOPS * 1e3
+
+
+def wkv6_bound(B, T, H, hd, itemsize=2, w_itemsize=4):
+    """(bytes_ms, ops_ms) of WKV6: r, k, v, w read and y written once, u
+    and the two states moved once; 7 fp32 operations per state element
+    and token (k·v, u·kv, S + u·kv, · r, the sum over i, w·S, + kv)."""
+    n = B * T * H * hd
+    nbytes = (n * (4 * itemsize + w_itemsize) + H * hd * 4
+              + 2 * B * H * hd * hd * 4)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            7 * n * hd / FP32_OPS_PER_S * 1e3)
+
+
+def ssm_bound(Bz, T, di, N, itemsize=4):
+    """(bytes_ms, ops_ms) of the selective scan: a, bx, B, C read and y
+    written once, h0 and h_last moved once; 5 operations per (t, c, n)
+    (a·h, bx·B, their sum, ·C, the sum over n)."""
+    nbytes = Bz * T * (3 * di + 2 * N) * itemsize + 2 * Bz * di * N * 4
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            5 * Bz * T * di * N / FP32_OPS_PER_S * 1e3)
 
 
 def cuda_ms(fn, inputs, iters):
@@ -305,6 +390,96 @@ def check_flash(dev):
     return worst
 
 
+def rel_err(got, want):
+    """max |got - want| / max |want|, in fp32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def check_recurrent_y(name, got, want, dtype):
+    """y in bf16 within 2e-2 (atol = rtol), y in fp32 within 1e-4 of the
+    largest magnitude; returns max |err|."""
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=REC_TOL_BF16, rtol=REC_TOL_BF16)
+    else:
+        assert rel_err(got, want) <= REC_TOL_F32, (name, rel_err(got, want))
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_wkv6(dev):
+    """The WKV6 kernel against its plain version on every listed shape;
+    returns the largest |err| of y."""
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    worst = 0.0
+    for i, (B, T, H, hd, dtype, wdtype, s0_nz, strided) in enumerate(
+            WKV6_CASES):
+        g = torch.Generator(dev).manual_seed(100 + i)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        if strided:     # r through a (B, H, T, hd) layout, v every 2nd head
+            r = randn(B, H, T, hd).to(dtype).transpose(1, 2)
+            v = randn(B, T, 2 * H, hd).to(dtype)[:, :, ::2]
+        else:
+            r, v = randn(B, T, H, hd).to(dtype), randn(B, T, H, hd).to(dtype)
+        k = randn(B, T, H, hd).to(dtype)
+        w = torch.exp(-torch.exp(randn(B, T, H, hd) - 1.0)).to(wdtype)
+        u = randn(H, hd) * 0.1
+        s0 = randn(B, H, hd, hd) * 0.5 if s0_nz else torch.zeros(
+            (B, H, hd, hd), device=dev)
+        before = wkv_kernel.wkv6_bthd.launches
+        y, s = wkv_kernel.wkv6_bthd(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        assert wkv_kernel.wkv6_bthd.launches == before + 1
+        y_ref, s_ref = wkv_ref.wkv6_reference(r, k, v, w, u, s0)
+        assert y.dtype == dtype and s.dtype == torch.float32
+        err = check_recurrent_y("wkv6", y, y_ref, dtype)
+        assert rel_err(s, s_ref) <= REC_TOL_F32, rel_err(s, s_ref)
+        worst = max(worst, err)
+        print(f"check wkv6_bthd (B,T,H,hd)={(B, T, H, hd)} "
+              f"{str(dtype)[6:]}/w {str(wdtype)[6:]} "
+              f"s0={'randn' if s0_nz else 0}"
+              f"{' strided' if strided else ''}: y max |err| {err:.3g} "
+              f"(rel {rel_err(y, y_ref):.3g}), state rel err "
+              f"{rel_err(s, s_ref):.3g}")
+    return worst
+
+
+def check_ssm(dev):
+    """The selective-scan kernel against its plain version on every
+    listed shape; returns the largest |err| of y."""
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+    worst = 0.0
+    for i, (Bz, T, di, N, dtype, h0_nz) in enumerate(SSM_CASES):
+        g = torch.Generator(dev).manual_seed(200 + i)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        a = torch.sigmoid(randn(Bz, T, di) + 2.0).to(dtype)
+        bx = randn(Bz, T, di).to(dtype)
+        Bm, Cm = randn(Bz, T, N).to(dtype), randn(Bz, T, N).to(dtype)
+        h0 = randn(Bz, di, N) if h0_nz else torch.zeros((Bz, di, N),
+                                                        device=dev)
+        before = ssm_kernel.ssm_scan_btd.launches
+        y, h = ssm_kernel.ssm_scan_btd(a, bx, Bm, Cm, h0)
+        torch.cuda.synchronize()
+        assert ssm_kernel.ssm_scan_btd.launches == before + 1
+        y_ref, h_ref = ssm_ref.ssm_scan_reference(a, bx, Bm, Cm, h0)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        err = check_recurrent_y("ssm_scan", y, y_ref, dtype)
+        assert rel_err(h, h_ref) <= REC_TOL_F32, rel_err(h, h_ref)
+        worst = max(worst, err)
+        print(f"check ssm_scan_btd (Bz,T,di,N)={(Bz, T, di, N)} "
+              f"{str(dtype)[6:]} h0={'randn' if h0_nz else 0}: y max |err| "
+              f"{err:.3g} (rel {rel_err(y, y_ref):.3g}), state rel err "
+              f"{rel_err(h, h_ref):.3g}")
+    return worst
+
+
 # ----------------------------------------------------------------------
 # the card against the CPU, small
 
@@ -333,21 +508,39 @@ def bf16_atol(want, ulps):
     return ulps * 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
 
 
-def lm_card_vs_cpu(dev):
-    """Reduced qwen3 prefill and 4 decode steps, card (flash kernel,
-    cuBLAS) against CPU (plain path); then a TINY_SERVE federation served
-    on the card with a mid-traffic hot-swap, whose post-swap admissions
-    must be token-identical to a fresh engine on the new params."""
+def kernel_wrappers():
+    """{name: wrapper} of the kernels the LM paths launch."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    return {"flash_attention_bhsd": fa_kernel.flash_attention_bhsd,
+            "wkv6_bthd": wkv_kernel.wkv6_bthd,
+            "ssm_scan_btd": ssm_kernel.ssm_scan_btd}
+
+
+def expected_launches(cfg, prefills, ticks):
+    """The launches of each LM kernel that `prefills` prefills and
+    `ticks` decode steps of `cfg` must make: prefill attention goes
+    through the flash kernel, each recurrence through its kernel in
+    prefill and decode alike; decode attention is plain code."""
+    L = cfg.n_layers
+    return {"flash_attention_bhsd": L * prefills if cfg.family != "ssm"
+            else 0,
+            "wkv6_bthd": L * (prefills + ticks) if cfg.family == "ssm"
+            else 0,
+            "ssm_scan_btd": L * (prefills + ticks)
+            if cfg.family == "hybrid" else 0}
+
+
+def lm_card_vs_cpu(dev, arch):
+    """Reduced `arch` prefill and 4 decode steps, card (the kernels,
+    cuBLAS) against CPU (plain path), with the same params and tokens."""
     from repro_torch import models
     from repro_torch.configs import ARCHS, reduced
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.pytree import tree_map
-    from repro_torch.serving import (
-        FederatedServer, ModelStore, Request, ServeConfig, ServingEngine,
-    )
-    from repro_torch.serving.harness import LMFederation, TINY_SERVE
 
-    cfg = reduced(ARCHS[LM_ARCH])
+    cfg = reduced(ARCHS[arch])
+    wrappers = kernel_wrappers()
     params = models.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab_size, (2, 77)).astype(np.int32))
@@ -356,33 +549,46 @@ def lm_card_vs_cpu(dev):
     out = {}
     for where in ("cpu", dev):
         p = tree_map(lambda x: x.to(where), params)
-        before = fa_kernel.flash_attention_bhsd.launches
+        before = {k: w.launches for k, w in wrappers.items()}
         lg, st, _ = models.prefill(cfg, p, {"tokens": toks.to(where)}, 128)
         logits = [lg[:, -1]]
         for t in range(4):
             pos = torch.full((2,), 77 + t, dtype=torch.int32, device=where)
             d, st = models.decode_step(cfg, p, st, nxt[:, t].to(where), pos)
             logits.append(d)
-        launched = fa_kernel.flash_attention_bhsd.launches - before
-        assert launched == (0 if where == "cpu" else cfg.n_layers), launched
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        want = (dict.fromkeys(wrappers, 0) if where == "cpu"
+                else expected_launches(cfg, 1, 4))
+        assert launched == want, (arch, where, launched, want)
         out[str(where)] = [x.float().cpu() for x in logits]
     worst = 0.0
     for a, b in zip(out["cpu"], out[str(dev)]):
-        # bf16 matmuls round in other places on cuBLAS than on the CPU:
-        # held to 8 bf16 ulps of the largest logit
+        # bf16 matmuls round in other places on cuBLAS than on the CPU,
+        # and the kernels sum in another order: held to 8 bf16 ulps of
+        # the largest logit
         atol = bf16_atol(a, 8)
         torch.testing.assert_close(b, a, atol=atol, rtol=0)
         worst = max(worst, float((a - b).abs().max()) / atol * 8)
-    print(f"reference {LM_ARCH}-reduced: card == CPU on prefill (B=2, "
-          f"S=77) + 4 decode steps, max |err| {worst:.2f} bf16 ulps of the "
-          f"largest logit (bound 8)")
+    print(f"reference {arch}-reduced: card == CPU on prefill (B=2, S=77) + "
+          f"4 decode steps, max |err| {worst:.2f} bf16 ulps of the largest "
+          f"logit (bound 8); card launches {expected_launches(cfg, 1, 4)}")
 
-    fed = LMFederation(TINY_SERVE, 0, device=dev)
+
+def hot_swap_on_card(dev, cfg):
+    """A small federation of `cfg` served on the card with a mid-traffic
+    hot-swap, whose post-swap admissions must be token-identical to a
+    fresh engine on the new params."""
+    from repro_torch.serving import (
+        FederatedServer, ModelStore, Request, ServeConfig, ServingEngine,
+    )
+    from repro_torch.serving.harness import LMFederation
+
+    fed = LMFederation(cfg, 0, device=dev)
     fed.run_rounds(1)
     store = ModelStore()
     fed.publish(store)
     scfg = ServeConfig(max_seq_len=64, batch_size=2)
-    srv = FederatedServer(TINY_SERVE, fed.overlay.registry, store, scfg,
+    srv = FederatedServer(cfg, fed.overlay.registry, store, scfg,
                           device=dev)
 
     def submit(eng, uids):
@@ -401,13 +607,13 @@ def lm_card_vs_cpu(dev):
     assert len(done) == 7 and srv.engine.swap_log[0]["applied_tick"] > 0
     after = sorted(u for u, r in done.items()
                    if r.params_version == model.version)
-    fresh = ServingEngine(TINY_SERVE, model.params, scfg, device=dev)
+    fresh = ServingEngine(cfg, model.params, scfg, device=dev)
     submit(fresh, after)
     want = {r.uid: r.generated for r in fresh.run()}
     assert all(done[u].generated == want[u] for u in after), (done, want)
-    print(f"hot-swap on the card: {len(after)} post-swap requests "
-          f"(uids {after}) token-identical to a fresh engine on round "
-          f"#{model.version}; swap log {srv.engine.swap_log}")
+    print(f"hot-swap on the card ({cfg.name}): {len(after)} post-swap "
+          f"requests (uids {after}) token-identical to a fresh engine on "
+          f"round #{model.version}; swap log {srv.engine.swap_log}")
 
 
 # ----------------------------------------------------------------------
@@ -475,33 +681,42 @@ def lm_requests(vocab):
                     max_new_tokens=MAX_NEW) for i, n in enumerate(lens)]
 
 
-def lm_main_path(dev, all_wrappers):
-    """qwen3-0.6b at full width through the entry points a user calls:
-    `LMFederation` (P = 3, 2 local steps, batch 4, seq 16, lr 0.1: the
-    harness's defaults) runs one round and publishes; `FederatedServer`
-    pulls the committed model through the provenance gate and serves 16
-    greedy requests.  Every launch count is 0 at the start.  Returns the
-    flash kernel's launches on this path."""
+def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
+    """`arch` at its published width, cut to `n_layers`, through the entry
+    points a user calls: `LMFederation` (P = 3, 2 local steps, batch 4,
+    seq 16: the harness's defaults; learning rate `lr`) runs one round
+    and publishes;
+    `FederatedServer` pulls the committed model through the provenance
+    gate and serves 16 greedy requests.  Every launch count is 0 at the
+    start.  Returns {LM kernel: its launches on this path}."""
+    import dataclasses
     from repro_torch import models
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.pytree import tree_flatten
     from repro_torch.serving import (
         FederatedServer, ModelStore, Request, ServeConfig, pull_latest_model,
     )
     from repro_torch.serving.harness import LMFederation
 
-    cfg = get_config(LM_ARCH)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    cut = ("" if n_layers == full.n_layers else
+           f", cut from {full.n_layers} layers (published widths)")
     scfg = ServeConfig(max_seq_len=2048, batch_size=8)
+    wrappers = kernel_wrappers()
     for w in all_wrappers:
         w.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 2 ** 30, "memory left over"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fed = LMFederation(cfg, 0, device=dev)
+    fed = LMFederation(cfg, 0, lr=lr, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(x[0].numel() for x in tree_flatten(fed.stacked)[0])
     assert n_params == models.param_count(cfg), n_params
+    gb = n_params * 4 / 1e9
     flush = Stopwatch(fed.overlay._flush)
     fed.overlay._flush = flush
     t0 = time.perf_counter()
@@ -510,10 +725,11 @@ def lm_main_path(dev, all_wrappers):
     round_ms = (time.perf_counter() - t0) * 1e3
     loss = metrics["loss"].float()
     assert bool(torch.isfinite(loss).all()), loss
-    for x in tree_flatten(fed.stacked)[0]:
-        assert bool(torch.isfinite(x).all())
+    assert all(bool(torch.isfinite(x).all())
+               for x in tree_flatten(fed.stacked)[0])
     assert trs[0].committed and fed.overlay.registry.verify_log()
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert train_peak < TRAIN_PEAK_LIMIT_GIB, train_peak
     store = ModelStore()
     t0 = time.perf_counter()
     fed.publish(store)
@@ -522,16 +738,19 @@ def lm_main_path(dev, all_wrappers):
     model = pull_latest_model(fed.overlay.registry, store,
                               arch_family=cfg.name)
     pull_ms = (time.perf_counter() - t0) * 1e3
-    print(f"main path {LM_ARCH} train: init {init_s:.2f} s | 1 round "
+    print(f"main path {arch} train: {n_layers} layers{cut}, {n_params:,} "
+          f"parameters | init {init_s:.2f} s | 1 round (lr {lr:g}) "
           f"{round_ms:.2f} ms ({flush.seconds * 1e3:.2f} of it the DLT "
-          f"flush: 4 fingerprints of 2.38 GB each on the host) | loss "
+          f"flush: 4 fingerprints of {gb:.2f} GB each on the host) | loss "
           f"{[round(float(x), 4) for x in loss[0]]} | publish "
           f"{publish_ms:.2f} ms | verified pull {pull_ms:.2f} ms (SHA-256 "
-          f"over 2.38 GB, {model.parents_verified} parent proofs) | peak "
+          f"over {gb:.2f} GB, {model.parents_verified} parent proofs) | peak "
           f"device memory {train_peak:.2f} GiB")
     registry = fed.overlay.registry
     del fed, model
+    gc.collect()
     torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 2 ** 30, "training left over"
     torch.cuda.reset_peak_memory_stats()
 
     prefill = Stopwatch(models.prefill, check=lambda out: bool(
@@ -543,6 +762,7 @@ def lm_main_path(dev, all_wrappers):
                               arch_family=cfg.name, device=dev)
         torch.cuda.synchronize()
         server_ms = (time.perf_counter() - t0) * 1e3
+        resident = torch.cuda.memory_allocated() / 2 ** 30
         step = Stopwatch(srv.engine.step_fn,
                          check=lambda out: bool(torch.isfinite(out[0]).all()))
         srv.engine.step_fn = step
@@ -553,25 +773,29 @@ def lm_main_path(dev, all_wrappers):
         done = srv.engine.run()
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = fa_kernel.flash_attention_bhsd.launches
-        n_prefill = len(prefill.calls)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        n_prefill, ticks = len(prefill.calls), len(step.calls)
         assert len(done) == N_REQUESTS == n_prefill, (len(done), n_prefill)
-        assert launches == cfg.n_layers * n_prefill, launches
+        want = expected_launches(cfg, n_prefill, ticks)
+        assert launches == want, (arch, launches, want)
         assert all(r.params_version == srv.model.version for r in done)
         prompt_toks = sum(len(r.prompt) for r in reqs)
         decode_toks = sum(len(r.generated) for r in done) - n_prefill
-        ticks = len(step.calls)
         serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"main path {LM_ARCH} serve: FederatedServer (verified pull "
+        print(f"main path {arch} serve: FederatedServer (verified pull "
               f"+ engine) {server_ms:.2f} ms | {N_REQUESTS} requests, "
               f"{prompt_toks} prompt tokens, {decode_toks} decoded tokens "
-              f"in {serve_s:.2f} s | prefill {prompt_toks / prefill.seconds:.0f}"
-              f" tokens/s ({prefill.seconds * 1e3:.1f} ms for {n_prefill} "
+              f"in {serve_s:.2f} s | prefill "
+              f"{prompt_toks / prefill.seconds:.0f} tokens/s "
+              f"({prefill.seconds * 1e3:.1f} ms for {n_prefill} "
               f"prefills) | decode {step.seconds * 1e3 / ticks:.2f} ms per "
               f"tick of 8 slots, {decode_toks / step.seconds:.1f} tokens/s "
-              f"({ticks} ticks) | flash launches {launches} = "
-              f"{cfg.n_layers} x {n_prefill} prefills | peak device memory "
-              f"{serve_peak:.2f} GiB")
+              f"({ticks} ticks) | launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+              + f" ({n_layers} layers x {n_prefill} prefills"
+              + (f" + {ticks} ticks" if cfg.family != "dense" else "")
+              + f") | peak device memory {serve_peak:.2f} GiB ({resident:.2f} "
+              f"GiB resident: params and decode state)")
 
     finally:
         models.prefill = prefill.fn
@@ -599,7 +823,73 @@ def lm_main_path(dev, all_wrappers):
           f"{busy:.1f} ms (idle {1 - busy / wall_ms:.1%}), "
           f"{sum(n for _, n in per_kernel.values())} device activities; top:"
           + "; ".join(f" {key[:44]} {t:.1f} ms/{n}" for key, (t, n) in top))
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def train_round(dev, cfg, lr, steps=False):
+    """One `LMFederation` round of `cfg` (the harness's defaults but `lr`;
+    the DLT flush left out, it runs on the host): its peak device memory
+    in GiB and, with `steps`, whether every param stayed finite and the
+    largest change of one param of institution 0."""
+    from repro_torch.pytree import tree_flatten
+    from repro_torch.serving.harness import LMFederation
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    fed = LMFederation(cfg, 0, lr=lr, device=dev)
+    fed.overlay._flush = lambda rounds: None
+    before = [x[0].cpu() for x in tree_flatten(fed.stacked)[0]] if steps \
+        else []
+    fed.run_rounds(1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not steps:
+        return peak
+    after = [x[0].cpu() for x in tree_flatten(fed.stacked)[0]]
+    finite = all(bool(torch.isfinite(x).all()) for x in after)
+    step = max(float((a - b).abs().max()) for a, b in zip(after, before))
+    return peak, finite, step
+
+
+def depth_probe(dev):
+    """For each recurrent family at its published width: the training
+    round's peak at 2 and 6 layers, the line through them, then the peak
+    at each depth from two below that line's fit upward, until one
+    reaches the limit: the depth before it is the cut.  At the cut, the
+    round's largest param step at the harness's lr 0.1 and at the path's
+    lr."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    for arch, cut, lr in LM_PATHS[1:]:
+        full = get_config(arch)
+        peak = {d: train_round(
+            dev, dataclasses.replace(full, n_layers=d), lr) for d in (2, 6)}
+        per_layer = (peak[6] - peak[2]) / 4
+        base = peak[2] - 2 * per_layer
+        depth = int((TRAIN_PEAK_LIMIT_GIB - base) // per_layer) - 2
+        print(f"depth probe {arch}: {peak[2]:.2f} GiB at 2 layers, "
+              f"{peak[6]:.2f} GiB at 6: {per_layer:.3f} GiB a layer over "
+              f"{base:.2f} GiB")
+        while depth < full.n_layers:
+            peak[depth] = train_round(
+                dev, dataclasses.replace(full, n_layers=depth), lr)
+            print(f"depth probe {arch}: {peak[depth]:.2f} GiB at {depth} "
+                  f"layers")
+            if peak[depth] >= TRAIN_PEAK_LIMIT_GIB:
+                break
+            depth += 1
+        print(f"depth probe {arch}: the largest depth below "
+              f"{TRAIN_PEAK_LIMIT_GIB:.0f} GiB is {depth - 1}")
+        for rate in sorted({0.1, lr}, reverse=True):
+            _, finite, step = train_round(
+                dev, dataclasses.replace(full, n_layers=cut), rate, True)
+            print(f"lr probe {arch} at {cut} layers, lr {rate:g}: params "
+                  f"finite after the round {finite}, largest step of one "
+                  f"param {step:.4g}")
 
 
 def time_flash(dev):
@@ -651,6 +941,54 @@ def time_flash(dev):
     return k_ms, p_ms, b_ms, b_by, lib_ms
 
 
+def time_recurrent(dev, name):
+    """The WKV6 or selective-scan kernel at its main path's prefill shape:
+    profiler median over 101 launches cycling 4 input sets (more than the
+    50 MB L2 together), the plain version's time on the same sets.
+    Library: none (no single PyTorch call computes either recurrence).
+    Returns (ms, plain_ms, bound_ms, bound_by)."""
+    g = torch.Generator(dev).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    if name == "wkv6_bthd":
+        from repro_torch.kernels.rwkv6_scan import kernel as mod
+        from repro_torch.kernels.rwkv6_scan import ref
+        B, T, H, hd = shape = WKV6_TIMED
+        sets = [(randn(*shape).bfloat16(), randn(*shape).bfloat16(),
+                 randn(*shape).bfloat16(),
+                 torch.exp(-torch.exp(randn(*shape) - 1.0)),
+                 randn(H, hd) * 0.1, torch.zeros((B, H, hd, hd), device=dev))
+                for _ in range(4)]
+        run, plain, tag = mod.wkv6_bthd, ref.wkv6_reference, "wkv6_kernel"
+        bytes_ms, ops_ms = wkv6_bound(*shape)
+    else:
+        from repro_torch.kernels.ssm_scan import kernel as mod
+        from repro_torch.kernels.ssm_scan import ref
+        Bz, T, di, N = shape = SSM_TIMED
+        sets = [(torch.sigmoid(randn(Bz, T, di) + 2.0), randn(Bz, T, di),
+                 randn(Bz, T, N), randn(Bz, T, N),
+                 torch.zeros((Bz, di, N), device=dev)) for _ in range(4)]
+        run, plain = mod.ssm_scan_btd, ref.ssm_scan_reference
+        tag = "ssm_scan_kernel"
+        bytes_ms, ops_ms = ssm_bound(*shape)
+    launch_ms = cuda_ms(lambda x: run(*x), sets, 100)
+    p_ms = cuda_ms(lambda x: plain(*x), sets, 4)
+    prof = device_us(lambda i: run(*sets[i % 4]), 101)
+    mine = [us for key, v in prof.items() if tag in key for us in v]
+    assert len(mine) == 101, (len(mine), list(prof))
+    k_ms = float(np.median(mine)) / 1e3
+    b_ms = max(bytes_ms, ops_ms)
+    b_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"time {name} {shape}: kernel median {k_ms * 1e3:.1f} us on the "
+          f"card ({launch_ms * 1e3:.1f} us per call back to back, host "
+          f"launch included) | plain {p_ms * 1e3:.1f} us | library: none | "
+          f"bound {b_ms * 1e3:.2f} us by {b_by} (bytes {bytes_ms * 1e3:.2f} "
+          f"us, operations {ops_ms * 1e3:.2f} us); kernel at "
+          f"{b_ms / k_ms:.2%} of bound")
+    return k_ms, p_ms, b_ms, b_by
+
+
 def time_secure_agg(dev, kernels, totals):
     from repro_torch.kernels.dp import kernel as dp_kernel
     from repro_torch.kernels.dp import ref as dp_ref
@@ -697,8 +1035,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.privacy.accountant import DPConfig
+    from repro_torch.serving.harness import TINY_SERVE, TINY_SERVE_SSM
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -710,6 +1048,9 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} (left as they are; "
           f"the federation's local step turns both off inside itself)")
     t_start = time.perf_counter()
+    if "--depth-probe" in sys.argv[1:]:
+        depth_probe(dev)
+        return 0
 
     # ---- build: one nvcc per source, all started together -------------
     built = _cuda.build_all()
@@ -718,11 +1059,15 @@ def main() -> int:
         print(f"build {name}.cu: {path.name} in {secs:.1f} s")
     print_resource_usage(built["secure_agg"][0], "Li10E")    # P = 10
     print_resource_usage(built["flash_attention"][0], "Li128E")  # hd 128
+    print_resource_usage(built["wkv6"][0], "fLi64E")     # rwkv6: hd 64
+    print_resource_usage(built["ssm_scan"][0], "IfLi16E")   # hymba: N 16
 
     # ---- each kernel against its plain version -----------------------
     kernels = secure_agg_kernels(dev)
     check_secure_agg(kernels, dev)
     flash_err = check_flash(dev)
+    wkv6_err = check_wkv6(dev)
+    ssm_err = check_ssm(dev)
 
     # ---- the card against the CPU, small -----------------------------
     def fed_kwargs(mode):
@@ -730,11 +1075,15 @@ def main() -> int:
                     dp=DPConfig(clip_norm=0.5, noise_multiplier=1.0)
                     if mode == "dp" else None)
     cnn_card_vs_cpu(dev, fed_kwargs)
-    lm_card_vs_cpu(dev)
+    for arch, _, _ in LM_PATHS:
+        lm_card_vs_cpu(dev, arch)
+    for cfg in (TINY_SERVE, TINY_SERVE_SSM):
+        hot_swap_on_card(dev, cfg)
 
     # ---- the main paths: full width, counts from 0 -------------------
-    wrappers = [k["wrapper"] for k in kernels.values()] + [
-        fa_kernel.flash_attention_bhsd]
+    lm_kernels = kernel_wrappers()
+    wrappers = [k["wrapper"] for k in kernels.values()] + list(
+        lm_kernels.values())
     totals = {name: 0 for name in kernels}
     cnn_main_path(dev, kernels, fed_kwargs, totals)
     for name, n in totals.items():
@@ -742,16 +1091,24 @@ def main() -> int:
 
     # ---- timing at the main paths' shapes ----------------------------
     rows = time_secure_agg(dev, kernels, totals)
-    k_ms, p_ms, b_ms, b_by, lib_ms = time_flash(dev)
+    timed = {"flash_attention_bhsd": time_flash(dev)}
+    for name in ("wkv6_bthd", "ssm_scan_btd"):
+        timed[name] = time_recurrent(dev, name) + (None,)
 
-    flash_launches = lm_main_path(dev, wrappers)
-    assert flash_launches > 0, "flash_attention_bhsd never launched"
-    rows.append({"name": "flash_attention_bhsd", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-                 "launches": flash_launches, "max_abs_err": flash_err,
-                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms})
+    lm_launches = dict.fromkeys(lm_kernels, 0)
+    for arch, depth, lr in LM_PATHS:
+        for name, n in lm_main_path(dev, arch, depth, lr, wrappers).items():
+            lm_launches[name] += n
+    errs = {"flash_attention_bhsd": flash_err, "wkv6_bthd": wkv6_err,
+            "ssm_scan_btd": ssm_err}
+    for name, (source, replaces) in LM_KERNEL_SOURCES.items():
+        assert lm_launches[name] > 0, f"{name} never launched"
+        k_ms, p_ms, b_ms, b_by, lib_ms = timed[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": lm_launches[name],
+                     "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
     assert all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
     print(f"smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 

@@ -8,7 +8,8 @@ a CPU-only machine imports every module).  A library lands in
 source and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  Flags are per source: ``secure_agg.cu`` is built
 without FMA contraction, so its float expressions round where the plain
-PyTorch version rounds; the attention kernel needs no such flag.
+PyTorch version rounds; the attention and recurrence kernels need no
+such flag.
 
 Each C entry point returns a CUDA error code (``cudaGetLastError()``
 after its launch); `launch` raises when that is not 0.  A failed build or
@@ -62,6 +63,20 @@ SOURCES = {
             "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I) + (_L,) * 12
                                    + (_I, _I, ctypes.c_float),
+        }),
+    "wkv6": (
+        (),
+        {
+            # (r, k, v, w, u, s0, y, s_final, bf16, w_bf16, B, T, H, hd,
+            #  r/k/v/w strides of (b, t, h) x 4)
+            "wkv6_fwd": (_P,) * 8 + (_I,) * 6 + (_L,) * 12,
+        }),
+    "ssm_scan": (
+        (),
+        {
+            # (a, bx, B, C, h0, y, h_last, bf16, Bz, T, di, N,
+            #  a/bx/B/C strides of (b, t) x 4)
+            "ssm_scan_fwd": (_P,) * 7 + (_I,) * 5 + (_L,) * 8,
         }),
 }
 _OWNER = {fn: src for src, (_, sigs) in SOURCES.items() for fn in sigs}

@@ -1,9 +1,8 @@
 """Model zoo dispatch: family -> implementation module.
 
-The dense transformer family is ported (`transformer.py`); the rwkv6
-(``ssm``) and hymba (``hybrid``) families are not yet (ROADMAP queue B
-items 7 and 8) and raise ``NotImplementedError``.  `stigma_cnn.py` is the
-paper's CNN, driven by `chaos.harness.CNNFederation`.
+The dense transformer family (`transformer.py`), rwkv6 (``ssm``,
+`rwkv6.py`) and hymba (``hybrid``, `hymba.py`) are ported.  `stigma_cnn.py`
+is the paper's CNN, driven by `chaos.harness.CNNFederation`.
 """
 from __future__ import annotations
 
@@ -15,13 +14,11 @@ from repro_torch.models import layers as L
 
 def _module(cfg: ModelConfig):
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the rwkv6 family and its WKV6 kernel are not "
-            f"ported to PyTorch yet (ROADMAP queue B item 7)")
+        from repro_torch.models import rwkv6
+        return rwkv6
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hymba family and its selective-scan kernel "
-            f"are not ported to PyTorch yet (ROADMAP queue B item 8)")
+        from repro_torch.models import hymba
+        return hymba
     from repro_torch.models import transformer
     return transformer
 

@@ -69,6 +69,17 @@ def param_count(specs) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_flatten(specs)[0])
 
 
+def layer_params(block, i: int):
+    """Layer i's weights out of a tree stacked on a leading layers dim."""
+    return {name: w[i] for name, w in block.items()}
+
+
+def zero_aux(device) -> dict:
+    """The auxiliary losses of a model without MoE layers: all 0."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance": zero, "router_z": zero, "dropped_frac": zero}
+
+
 # ======================================================================
 # Norms / activations
 # ======================================================================

@@ -80,10 +80,6 @@ def param_specs(cfg: ModelConfig) -> Params:
     return specs
 
 
-def _layer(block: Params, i: int) -> Params:
-    return {name: w[i] for name, w in block.items()}
-
-
 # ======================================================================
 # One transformer block (the reference's scan body)
 # ======================================================================
@@ -114,9 +110,7 @@ def _ffn_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     _dense_text_only(cfg)
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     out = L.ffn_swiglu(h, p["wi_gate"], p["wi_up"], p["wo_ffn"])
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + out, {"load_balance": zero, "router_z": zero,
-                     "dropped_frac": zero}
+    return x + out, L.zero_aux(x.device)
 
 
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -173,7 +167,8 @@ def forward_features(cfg: ModelConfig, params: Params,
     x, positions = embed_inputs(cfg, params, batch)
     auxs = []
     for i in range(cfg.n_layers):
-        x, aux = _block(cfg, _layer(params["block"], i), x, positions, impl)
+        x, aux = _block(cfg, L.layer_params(params["block"], i), x,
+                        positions, impl)
         auxs.append(aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, _mean_aux(auxs), _head(cfg, params)
@@ -219,8 +214,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     take = min(W, S)
     auxs, k_tail, v_tail = [], [], []
     for i in range(cfg.n_layers):
-        x, aux, (k, v) = _block(cfg, _layer(params["block"], i), x,
-                                positions, impl, collect_kv=True)
+        x, aux, (k, v) = _block(cfg, L.layer_params(params["block"], i),
+                                x, positions, impl, collect_kv=True)
         auxs.append(aux)
         k_tail.append(k[:, S - take:])
         v_tail.append(v[:, S - take:])
@@ -246,7 +241,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ks, vs, ps = [], [], []
     for i in range(cfg.n_layers):
-        p = _layer(params["block"], i)
+        p = L.layer_params(params["block"], i)
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, hq, hd)
         k = (h @ p["wk"].to(h.dtype)).reshape(B, 1, hkv, hd)

@@ -7,9 +7,10 @@ institution-private synthetic token streams through the same
 `publish` puts the merged model where a serving replica's verified pull
 (`serving.federated`) can fetch it.
 
-`TINY_SERVE` is the small dense config of the serve-path tests.  The
-reference's `TINY_SERVE_SSM` (rwkv6) waits for that family's port
-(ROADMAP queue B item 7).
+`TINY_SERVE` and `TINY_SERVE_SSM` are the reference's two small configs
+of the serve-path tests, of two families (dense attention and the rwkv6
+recurrence), so that the prefill-vs-token-wise A/B and the hot-swap
+battery cover both a cache-shaped and a constant-size decode state.
 """
 from __future__ import annotations
 
@@ -33,6 +34,11 @@ TINY_SERVE = ModelConfig(
     n_heads=2, n_kv_heads=1, d_ff=128, vocab_size=128,
     citation="tier-1 serve-path smoke config")
 
+TINY_SERVE_SSM = ModelConfig(
+    name="tiny-serve-ssm", family="ssm", n_layers=2, d_model=64,
+    n_heads=0, n_kv_heads=0, d_ff=128, vocab_size=128, wkv_head_dim=32,
+    citation="tier-1 serve-path smoke config, rwkv6 family")
+
 
 class LMFederation:
     """P institutions training a causal LM under the decentralized
@@ -40,8 +46,9 @@ class LMFederation:
     and `publish(store)` puts the merged model into a weight store.
 
     The local step is one SGD step on the next-token cross-entropy,
-    `torch.func.vmap`-ed over the institution axis, with attention on the
-    plain path (``impl="ref"``, as the reference trains).  The DLT runs
+    `torch.func.vmap`-ed over the institution axis, with attention and
+    the recurrences on the plain path (``impl="ref"``, as the reference
+    trains: no kernel has a backward pass yet).  The DLT runs
     with a logical clock, so two same-seed runs produce byte-identical
     chains.
 

@@ -11,7 +11,9 @@ rounds once, the kernel in float32 pair by pair); the DP noise within rtol = 1e-
 card's libm against PyTorch's); flash attention within atol = rtol =
 2e-2 in bf16 and 2e-5 in fp32 (the JAX package's own bounds for its
 kernel against its plain version: the kernel sums in another order and
-rescales online).
+rescales online); the WKV6 and selective-scan kernels within atol =
+rtol = 2e-2 for bf16 y and 1e-4 of the largest magnitude for fp32 y and
+the fp32 states (they sum in another order).
 """
 import numpy as np
 import pytest
@@ -25,6 +27,11 @@ from repro_torch.kernels.dp import ref as dp_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan import ref as ssm_ref
 from repro_torch.kernels.secure_agg import kernel as agg_kernel
 from repro_torch.kernels.secure_agg import ref as agg_ref
 from repro_torch.privacy.accountant import DPConfig
@@ -139,6 +146,7 @@ FLASH_CASES = [
     (2, 256, 4, 2, 64, torch.float32, True, 64),
     (2, 256, 4, 2, 64, torch.float32, True, 100),
     (1, 200, 4, 2, 64, torch.float32, False, 0),      # non-causal ragged
+    (1, 1152, 25, 5, 64, torch.bfloat16, True, 1024),  # hymba's prefill
 ]
 
 
@@ -201,9 +209,127 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
 @pytest.mark.cuda
 def test_every_source_builds_into_its_own_library(cuda):
     paths = {name: p for name, (p, _) in _cuda.build_all().items()}
-    assert set(paths) == set(_cuda.SOURCES) == {"secure_agg",
-                                                "flash_attention"}
+    assert set(paths) == set(_cuda.SOURCES) == {
+        "secure_agg", "flash_attention", "wkv6", "ssm_scan"}
     assert len({p.name for p in paths.values()}) == len(paths)
     assert all(p.exists() for p in paths.values())
     assert "-fmad=false" in _cuda.nvcc_flags("secure_agg")
-    assert "-fmad=false" not in _cuda.nvcc_flags("flash_attention")
+    for name in ("flash_attention", "wkv6", "ssm_scan"):
+        assert "-fmad=false" not in _cuda.nvcc_flags(name)
+
+
+# ----------------------------------------------------------------------
+# the recurrences: WKV6 (B, T, H, hd, r/k/v dtype, w dtype, nonzero s0,
+# strided) and the selective scan (Bz, T, di, N, dtype, nonzero h0), the
+# smoke's shapes; bf16 y within atol = rtol = 2e-2 (the flash kernel's
+# bound), fp32 y and the fp32 states within 1e-4 of the largest magnitude
+# (the kernels sum in another order than the plain versions)
+WKV6_CASES = [
+    (1, 1000, 40, 64, torch.bfloat16, torch.float32, False, False),
+    (8, 1, 40, 64, torch.bfloat16, torch.float32, True, False),
+    (2, 77, 4, 32, torch.float32, torch.float32, True, False),
+    (2, 40, 3, 16, torch.bfloat16, torch.bfloat16, True, False),
+    (1, 33, 2, 128, torch.float32, torch.float32, True, False),
+    (2, 50, 4, 64, torch.bfloat16, torch.float32, True, True),
+]
+SSM_CASES = [
+    (1, 1152, 3200, 16, torch.float32, False),
+    (8, 1, 3200, 16, torch.float32, True),
+    (2, 100, 1001, 16, torch.float32, True),
+    (2, 70, 515, 8, torch.bfloat16, True),
+    (1, 37, 96, 5, torch.float32, True),
+]
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _check_y(got, want, dtype):
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    else:
+        assert _rel(got, want) <= 1e-4
+
+
+def _randn(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV6_CASES, ids=str)
+def test_wkv6_kernel_matches_plain(cuda, case):
+    B, T, H, hd, dtype, wdtype, s0_nz, strided = case
+    rng = np.random.default_rng([B, T, H, hd])
+    if strided:
+        r = _randn(rng, B, H, T, hd).to(cuda, dtype).transpose(1, 2)
+        v = _randn(rng, B, T, 2 * H, hd).to(cuda, dtype)[:, :, ::2]
+    else:
+        r = _randn(rng, B, T, H, hd).to(cuda, dtype)
+        v = _randn(rng, B, T, H, hd).to(cuda, dtype)
+    k = _randn(rng, B, T, H, hd).to(cuda, dtype)
+    w = torch.exp(-torch.exp(_randn(rng, B, T, H, hd) - 1)).to(cuda, wdtype)
+    u = (_randn(rng, H, hd) * 0.1).to(cuda)
+    s0 = (_randn(rng, B, H, hd, hd) * (0.5 if s0_nz else 0.0)).to(cuda)
+    before = wkv_kernel.wkv6_bthd.launches
+    y, s = wkv_kernel.wkv6_bthd(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_kernel.wkv6_bthd.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    y_ref, s_ref = wkv_ref.wkv6_reference(r, k, v, w, u, s0)
+    _check_y(y, y_ref, dtype)
+    assert _rel(s, s_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES, ids=str)
+def test_ssm_scan_kernel_matches_plain(cuda, case):
+    Bz, T, di, N, dtype, h0_nz = case
+    rng = np.random.default_rng([Bz, T, di, N])
+    a = torch.sigmoid(_randn(rng, Bz, T, di) + 2).to(cuda, dtype)
+    bx = _randn(rng, Bz, T, di).to(cuda, dtype)
+    Bm, Cm = (_randn(rng, Bz, T, N).to(cuda, dtype) for _ in range(2))
+    h0 = (_randn(rng, Bz, di, N) * (1.0 if h0_nz else 0.0)).to(cuda)
+    before = ssm_kernel.ssm_scan_btd.launches
+    y, h = ssm_ops.ssm_scan(a, bx, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    assert ssm_kernel.ssm_scan_btd.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y_ref, h_ref = ssm_ref.ssm_scan_reference(a, bx, Bm, Cm, h0)
+    _check_y(y, y_ref, dtype)
+    assert _rel(h, h_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_recurrence_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.bfloat16)
+    w, u = x.float(), torch.zeros((2, 64), device=cuda)
+    s0 = torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        y = torch.zeros((1, 4, 2, 48), device=cuda)
+        wkv_kernel.wkv6_bthd(y, y, y, y, u[:, :48].contiguous(),
+                             s0[:, :, :48, :48].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_kernel.wkv6_bthd(x, x.cpu(), x, w, u, s0)
+    with pytest.raises(ValueError, match="like r"):
+        wkv_kernel.wkv6_bthd(x, x.float(), x, w, u, s0)
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv_kernel.wkv6_bthd(x.transpose(1, 3).contiguous().transpose(1, 3),
+                             x, x, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        wkv_kernel.wkv6_bthd(x, x, x, w, u, s0.double())
+    a = torch.zeros((1, 4, 32), device=cuda)
+    B = torch.zeros((1, 4, 16), device=cuda)
+    h0 = torch.zeros((1, 32, 16), device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        wide = torch.zeros((1, 4, 33), device=cuda)
+        ssm_kernel.ssm_scan_btd(a, a, wide, wide,
+                                torch.zeros((1, 32, 33), device=cuda))
+    with pytest.raises(ValueError, match="like a"):
+        ssm_kernel.ssm_scan_btd(a, a.bfloat16(), B, B, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_kernel.ssm_scan_btd(a, a, B.cpu(), B, h0)
+    with pytest.raises(ValueError, match="h0 must be"):
+        ssm_kernel.ssm_scan_btd(a, a, B, B, h0[:, :16])
