@@ -1,5 +1,6 @@
 """The federation harness: P hospitals training the (width-scaled) paper CNN
-through the overlay, the slice of the system ``chip_smoke.py`` drives.
+through the overlay under a fault schedule and an attack schedule: the
+paper's federation, as ``chip_smoke.py`` runs it.
 """
 from __future__ import annotations
 
@@ -22,11 +23,12 @@ from repro_torch.models import stigma_cnn as cnn
 
 
 class CNNFederation:
-    """P institutions training the paper CNN.  `run_round(rnd)` executes
-    one overlay round (local SGD on institution-private synthetic GLENDA
-    frames, then the consensus-gated secure merge) and returns (metrics,
-    transcript); `run_rounds(n)` executes n rounds through the batched
-    engine, bit-identical to n `run_round` calls.
+    """P institutions training the paper CNN under a fault schedule.
+    `run_round(rnd)` executes one overlay round (local SGD on
+    institution-private synthetic GLENDA frames, then the consensus-gated,
+    survivor-masked secure merge) and returns (metrics, transcript);
+    `run_rounds(n)` executes n rounds through the batched engine,
+    bit-identical to n `run_round` calls.
 
     The local SGD step is vmapped over the institution axis
     (`torch.func.vmap` of `torch.func.grad_and_value`), in IEEE float32
@@ -38,7 +40,12 @@ class CNNFederation:
     ``torch.Generator`` seeds `seed` (weights) and `seed + 1` (jitter).
     `device`: None means ``cuda`` and raises without a CUDA device.
     `secure_domain`: "float" or "int" secure_mean arithmetic.
-    `schedule` (faults) and `mesh` are not ported yet and must be None."""
+    `schedule`: a `chaos.FaultSchedule` (None: every institution survives
+    every round).  `dp`: a `privacy.DPConfig`.  `attack_schedule`: a
+    `chaos.ByzantineSchedule`; model poisoning runs inside the overlay,
+    and a ``label_flip`` schedule poisons the attacker institutions'
+    dataset labels here instead (statically, so it takes no start/stop
+    window).  `mesh` is not ported yet and must be None."""
 
     def __init__(self, schedule=None, seed: int = 0, *,
                  n_institutions: int = 5, local_steps: int = 2,
@@ -46,11 +53,12 @@ class CNNFederation:
                  width_scale: float = 0.25, lr: float = 0.05,
                  mesh=None, dirichlet_alpha: Optional[float] = None,
                  merge: str = "secure_mean",
-                 dp=None, secure_domain: str = "float", stacked=None,
+                 dp=None, attack_schedule=None,
+                 secure_domain: str = "float", stacked=None,
                  device=None):
-        if schedule is not None or mesh is not None:
-            raise NotImplementedError("fault schedules and meshes are not "
-                                      "ported to the PyTorch overlay yet")
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported to the "
+                                      "PyTorch overlay yet")
         self.device = resolve_device(device)
         P = n_institutions
         self.P, self.local_steps, self.batch = P, local_steps, batch
@@ -58,10 +66,22 @@ class CNNFederation:
         self.cfg = dataclasses.replace(STIGMA_CNN, image_size=image_size)
         part = (None if dirichlet_alpha is None else
                 DirichletPartitioner(P, alpha=dirichlet_alpha, seed=seed))
+        flipped = ()
+        if attack_schedule is not None and \
+                attack_schedule.kind == "label_flip":
+            # the poisoning is baked into the dataset at construction: a
+            # round window cannot be honoured (the ledger's attacker
+            # metadata would contradict the actual poisoning)
+            if attack_schedule.start != 0 or attack_schedule.stop is not None:
+                raise ValueError(
+                    "label_flip poisons the dataset statically; "
+                    "start/stop round windows are not supported")
+            flipped = attack_schedule.attacker_set(P)
         self.ds = SyntheticGlendaDataset(image_size=image_size,
                                          n_samples=40 * P,
                                          n_institutions=P, seed=seed,
-                                         partitioner=part)
+                                         partitioner=part,
+                                         label_flip_institutions=flipped)
         cfg, self.lr = self.cfg, lr
 
         def local_step(params, batch_):
@@ -83,8 +103,9 @@ class CNNFederation:
         self.stacked = tree_map(lambda x: x.to(self.device), stacked)
         self.overlay = DecentralizedOverlay(OverlayConfig(
             n_institutions=P, local_steps=local_steps, merge=merge,
-            alpha=1.0, consensus_seed=seed, dp=dp,
-            secure_domain=secure_domain, arch_family="cnn"),
+            alpha=1.0, consensus_seed=seed, fault_schedule=schedule, dp=dp,
+            attack_schedule=attack_schedule, secure_domain=secure_domain,
+            arch_family="cnn"),
             registry=ModelRegistry(logical_clock=True))
 
     def _round_batches(self, rnd: int) -> Tuple[torch.Tensor, torch.Tensor]:

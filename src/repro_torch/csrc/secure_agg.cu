@@ -16,6 +16,10 @@
 //       repro/kernels/dp/kernel.py:clip_noise_flat (_clip_noise_kernel):
 //       per-row L2 clip + Box-Muller Gaussian noise.
 //
+// and the legacy two-stage round's two aggregates of pre-masked shares
+// (the explicit-dataflow oracle the fused round was built against; see
+// the section "Legacy two-stage round" below for their notes).
+//
 // Design.  One thread owns one column g of the (P, N) row-major rows, and
 // holds the P <= 16 values of that column in registers (P is a template
 // parameter, so every per-row array is unrolled into registers).  The PRG
@@ -52,6 +56,9 @@
 // The encode uses rintf (half to even, as jnp.round and torch.round); the
 // DP noise uses the accurate logf / sqrtf / cosf, never the __ intrinsics.
 #include <cstdint>
+#include <initializer_list>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -238,6 +245,137 @@ inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// ---------------------------------------------------------------------
+// Legacy two-stage round.
+//
+//   rolling_update_kernel  replaces the TPU kernel
+//       repro/kernels/secure_agg/kernel.py:rolling_update_flat
+//       (_rolling_update_kernel): mean over P pre-masked f32 shares,
+//       blended into one params row, p + alpha * (mean - p), the result
+//       in params' type (f32, bf16 or f16).
+//   field_wsum_kernel      replaces the TPU kernel
+//       repro/kernels/secure_agg/kernel.py:field_wsum_flat
+//       (_field_wsum_kernel): wrapping uint32 column sum of (P, N) field
+//       shares; the decode and blend stay in the plain int_blend_params.
+//
+// Design.  One thread owns V adjacent columns (V = 4 when N % 4 == 0 and
+// every operand starts on a 4-value boundary, so every row's slice loads
+// as one vector; else 1: a contiguous view at an odd storage offset takes
+// the scalar path instead of faulting) and loops over any P, summing row by row in fp32 (or uint32, wrapping)
+// in registers; nothing is staged in shared memory.  The TPU kernel's
+// (P, bn) VMEM tile and its block size have no counterpart: a thread
+// masks the ragged edge itself, so the caller pads nothing.  The mean is
+// the sum divided by P (IEEE division), and with -fmad=false the blend
+// rounds after each operation, as the plain version does.
+//
+// Bound on an H100 SXM: bytes.  rolling_update reads P x N x 4 B of
+// shares and N params and writes N outputs: at the legacy round's P = 3,
+// N = 596,049,920 (qwen3-0.6b) with f32 params, 5 x 4 B x N = 11.92 GB,
+// 3.56 ms at 3.35 TB/s.  field_wsum reads P x N x 4 B and writes N x 4 B:
+// 9.54 GB, 2.85 ms.  Each does P adds per column, far below any pipe's
+// rate.  Several loads per thread are in flight (the P loop is unrolled
+// by 4), which is what a streaming kernel needs to reach the bound.
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// V adjacent values, aligned so that one load or store moves them all.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, V>*>(p);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+rolling_update_kernel(const float* __restrict__ shares,
+                      const T* __restrict__ params, T* __restrict__ out,
+                      int rows, int64_t n, float alpha) {
+  const int64_t g =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (int64_t)V;
+  if (g >= n) return;
+  float sum[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sum[v] = 0.0f;
+#pragma unroll 4
+  for (int p = 0; p < rows; ++p) {
+    const Pack<float, V> x = load_pack<float, V>(shares + p * n + g);
+#pragma unroll
+    for (int v = 0; v < V; ++v) sum[v] += x.v[v];
+  }
+  const float count = (float)rows;
+  const Pack<T, V> pk = load_pack<T, V>(params + g);
+  Pack<T, V> o;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float pv = to_f32(pk.v[v]);
+    const float mean = sum[v] / count;
+    o.v[v] = from_f32<T>(pv + alpha * (mean - pv));
+  }
+  *reinterpret_cast<Pack<T, V>*>(out + g) = o;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+field_wsum_kernel(const uint32_t* __restrict__ shares,
+                  uint32_t* __restrict__ out, int rows, int64_t n) {
+  const int64_t g =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (int64_t)V;
+  if (g >= n) return;
+  Pack<uint32_t, V> sum;
+#pragma unroll
+  for (int v = 0; v < V; ++v) sum.v[v] = 0u;
+#pragma unroll 4
+  for (int p = 0; p < rows; ++p) {
+    const Pack<uint32_t, V> x = load_pack<uint32_t, V>(shares + p * n + g);
+#pragma unroll
+    for (int v = 0; v < V; ++v) sum.v[v] += x.v[v];  // wraps mod 2^32
+  }
+  *reinterpret_cast<Pack<uint32_t, V>*>(out + g) = sum;
+}
+
+// True when n columns split into 4-wide packs of T and every pointer
+// starts on a pack boundary.
+template <typename T>
+bool packs_of_4(int64_t n, std::initializer_list<const void*> ptrs) {
+  if (n % 4 != 0) return false;
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % (4 * sizeof(T)) != 0) return false;
+  return true;
+}
+
+template <typename T>
+int launch_rolling_update(const void* shares, const void* params, void* out,
+                          int rows, int64_t n, float alpha, cudaStream_t s) {
+  if (packs_of_4<float>(n, {shares}) && packs_of_4<T>(n, {params, out}))
+    rolling_update_kernel<T, 4><<<blocks_for(n / 4), kThreads, 0, s>>>(
+        (const float*)shares, (const T*)params, (T*)out, rows, n, alpha);
+  else
+    rolling_update_kernel<T, 1><<<blocks_for(n), kThreads, 0, s>>>(
+        (const float*)shares, (const T*)params, (T*)out, rows, n, alpha);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define REPRO_DISPATCH_ROWS(P_RUNTIME, LAUNCH)                         \
@@ -292,6 +430,40 @@ int clip_noise_f32(const void* u, void* out, const void* norms,
       (const float*)mask, n, seed, clip, sigma)
   REPRO_DISPATCH_ROWS(p, LAUNCH)
 #undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// params dtype: 0 float32, 1 bfloat16, 2 float16; out has params' type.
+int rolling_update_f32(const void* shares, const void* params, void* out,
+                       int p, int64_t n, float alpha, int dtype,
+                       void* stream) {
+  if (n <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return launch_rolling_update<float>(shares, params, out, p, n, alpha,
+                                          s);
+    case 1:
+      return launch_rolling_update<__nv_bfloat16>(shares, params, out, p, n,
+                                                  alpha, s);
+    case 2:
+      return launch_rolling_update<__half>(shares, params, out, p, n, alpha,
+                                           s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int field_wsum_u32(const void* shares, void* out, int p, int64_t n,
+                   void* stream) {
+  if (n <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (packs_of_4<uint32_t>(n, {shares, out}))
+    field_wsum_kernel<4><<<blocks_for(n / 4), kThreads, 0, s>>>(
+        (const uint32_t*)shares, (uint32_t*)out, p, n);
+  else
+    field_wsum_kernel<1><<<blocks_for(n), kThreads, 0, s>>>(
+        (const uint32_t*)shares, (uint32_t*)out, p, n);
   return (int)cudaGetLastError();
 }
 

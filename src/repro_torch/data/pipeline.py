@@ -9,7 +9,7 @@ institution's frames carry a camera bias (non-IID).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -79,11 +79,18 @@ class SyntheticGlendaDataset:
 
     `partitioner` replaces the round-robin institution assignment with a
     label-skewed split; the per-hospital camera bias follows the
-    assignment."""
+    assignment.
+
+    `label_flip_institutions`: the listed institutions' training labels
+    are flipped after the images are rendered (the frames still show the
+    true pathology; the labels lie), the data-poisoning attack of
+    `chaos.attacks` ``label_flip``.  Flipping follows every RNG draw, so
+    the empty default is the unpoisoned dataset."""
 
     def __init__(self, image_size: int = 64, n_samples: int = 500,
                  n_institutions: int = 1, seed: int = 0,
-                 partitioner: Optional[DirichletPartitioner] = None):
+                 partitioner: Optional[DirichletPartitioner] = None,
+                 label_flip_institutions: Sequence[int] = ()):
         rng = np.random.default_rng(seed)
         self.n_institutions = n_institutions
         self.images = np.zeros((n_samples, image_size, image_size, 3),
@@ -110,6 +117,16 @@ class SyntheticGlendaDataset:
                                 / (2.0 * r * r)))
                 base[..., 0] += 2.0 * blob             # reddish lesion
             self.images[i] = base
+        if len(label_flip_institutions):
+            bad = [i for i in label_flip_institutions
+                   if not 0 <= i < n_institutions]
+            if bad:
+                raise ValueError(f"label_flip institutions {bad} out of "
+                                 f"range for {n_institutions}")
+            poisoned = np.isin(self.institution,
+                               np.asarray(label_flip_institutions))
+            self.labels = np.where(poisoned, 1 - self.labels,
+                                   self.labels).astype(np.int32)
 
     def institution_split(self, i: int):
         m = self.institution == i

@@ -54,6 +54,10 @@ SOURCES = {
             # (u, out, norms, mask, P, N, seed, clip, sigma)
             "clip_noise_f32": (_P, _P, _P, _P, _I, _L, ctypes.c_uint32,
                                ctypes.c_float, ctypes.c_float),
+            # (shares, params, out, P, N, alpha, params dtype code)
+            "rolling_update_f32": (_P, _P, _P, _I, _L, ctypes.c_float, _I),
+            # (shares, out, P, N)
+            "field_wsum_u32": (_P, _P, _I, _L),
         }),
     "flash_attention": (
         (),
@@ -183,12 +187,15 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_rows(x: torch.Tensor, what: str = "updates", max_rows: int = 16):
-    """(P, N) float32 contiguous CUDA rows with 1 <= P <= max_rows."""
+def check_rows(x: torch.Tensor, what: str = "updates", max_rows: int = 16,
+               dtype: torch.dtype = torch.float32):
+    """(P, N) contiguous CUDA rows of `dtype` with 1 <= P <= max_rows.
+    The fused kernels hold a column's P rows in registers (P <= 16); the
+    legacy kernels loop over any P (max_rows = 2^31 - 1)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} must be a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{what} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {x.dtype}")
     if x.dim() != 2 or not 1 <= x.shape[0] <= max_rows:
         raise ValueError(f"{what} must be (P, N) with 1 <= P <= {max_rows}, "
                          f"got shape {tuple(x.shape)}")

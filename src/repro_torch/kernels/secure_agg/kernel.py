@@ -1,5 +1,6 @@
 """Wrappers of the hand-written Hopper secure-aggregation kernels
-(``csrc/secure_agg.cu``).
+(``csrc/secure_agg.cu``): the fused MPC round in both domains, and the
+legacy two-stage round's aggregate of pre-masked shares in both domains.
 
 A wrapper given CPU tensors computes its kernel's plain PyTorch version
 (`ref.py`): that is the CPU path the tests run.  Given CUDA tensors it
@@ -61,3 +62,58 @@ def masked_field_wsum_flat(updates: torch.Tensor, seed: int, mask=None, *,
 
 
 masked_field_wsum_flat.launches = 0
+
+
+# params dtype -> the kernel's dtype code (csrc/secure_agg.cu)
+_PARAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ANY_P = 2 ** 31 - 1
+
+
+def rolling_update_flat(shares: torch.Tensor, params: torch.Tensor,
+                        alpha) -> torch.Tensor:
+    """Legacy float round.  shares: (P, N) f32 pre-masked shares, any P;
+    params: (N,) f32/bf16/f16; alpha: scalar -> (N,) in params.dtype,
+    ``p + alpha * (mean_p shares - p)``.  Replaces the TPU kernel
+    ``repro/kernels/secure_agg/kernel.py:rolling_update_flat``."""
+    if shares.device.type == "cpu":
+        return _ref.rolling_update_reference(shares, params, alpha)
+    P, N = _cuda.check_rows(shares, "shares", max_rows=_ANY_P)
+    if params.dtype not in _PARAM_DTYPES:
+        raise ValueError(f"params must be float32, bfloat16 or float16, "
+                         f"got {params.dtype}")
+    if params.shape != (N,) or params.device != shares.device:
+        raise ValueError(f"params must be ({N},) on {shares.device}, got "
+                         f"{tuple(params.shape)} on {params.device}")
+    if not params.is_contiguous():
+        raise ValueError("params must be contiguous")
+    out = torch.empty_like(params)
+    if N == 0:
+        return out
+    _cuda.launch("rolling_update_f32", shares.device, shares.data_ptr(),
+                 params.data_ptr(), out.data_ptr(), P, N, float(alpha),
+                 _PARAM_DTYPES[params.dtype])
+    rolling_update_flat.launches += 1
+    return out
+
+
+rolling_update_flat.launches = 0
+
+
+def field_wsum_flat(shares: torch.Tensor) -> torch.Tensor:
+    """Legacy int round's share-sum.  shares: (P, N) uint32 field shares,
+    any P -> (N,) int32 bit patterns of the wrapping column sum.  Replaces
+    the TPU kernel ``repro/kernels/secure_agg/kernel.py:field_wsum_flat``."""
+    if shares.device.type == "cpu":
+        return _ref.field_wsum_reference(shares)
+    P, N = _cuda.check_rows(shares, "shares", max_rows=_ANY_P,
+                            dtype=torch.uint32)
+    words = torch.empty((N,), dtype=torch.int32, device=shares.device)
+    if N == 0:
+        return words
+    _cuda.launch("field_wsum_u32", shares.device, shares.data_ptr(),
+                 words.data_ptr(), P, N)
+    field_wsum_flat.launches += 1
+    return words
+
+
+field_wsum_flat.launches = 0

@@ -3,9 +3,15 @@
 They are what the CPU runs, what the tests hold against the JAX package,
 and what ``chip_smoke.py`` holds the CUDA kernels against on the card.
 
-Output dtype contract: ``masked_rolling_update_*`` returns updates.dtype
-(it blends all P update rows); the int-domain decode runs in f32 and casts
-back once at the end.
+Output dtype contract, in both domains (the int-domain decode runs in f32
+and casts back once at the end):
+
+  rolling_update_*         -> params.dtype   (blends ONE params row)
+  masked_rolling_update_*  -> updates.dtype  (blends ALL P update rows)
+
+Field shares travel as ``torch.uint32`` tensors (the legacy two-stage
+path's published shares) or as int64 words in [0, 2^32) inside the plain
+arithmetic; share-sums as int32 bit patterns.
 """
 from __future__ import annotations
 
@@ -46,6 +52,60 @@ def _apply_pads(q: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
     return q & M32
 
 
+def rolling_update_reference(shares: torch.Tensor, params: torch.Tensor,
+                             alpha) -> torch.Tensor:
+    """The legacy float round: mean over the P pre-masked shares (P, N),
+    blended into one params row (N,) as ``p + alpha * (mean - p)`` ->
+    (N,) in params.dtype.  The mean is the f32 sum divided by P, as the
+    kernel computes it."""
+    agg = shares.to(torch.float32).sum(dim=0) / float(shares.shape[0])
+    p = params.to(torch.float32)
+    a = torch.as_tensor(alpha, dtype=torch.float32,
+                        device=p.device).reshape(())
+    return (p + a * (agg - p)).to(params.dtype)
+
+
+def field_wsum_reference(shares: torch.Tensor, *,
+                         chunk: int = 1 << 24) -> torch.Tensor:
+    """The legacy int round's share-sum: (P, N) uint32 field shares ->
+    (N,) int32 bit patterns of their exact column sum mod 2^32.  `chunk`
+    bounds the (P, chunk) int64 transient; the sum does not depend on
+    it."""
+    if shares.dtype != torch.uint32:
+        raise ValueError(f"field shares are uint32, got {shares.dtype}")
+    words = shares.view(torch.int32)
+    N = shares.shape[1]
+    out = torch.empty((N,), dtype=torch.int32, device=shares.device)
+    for start in range(0, N, chunk):
+        stop = min(start + chunk, N)
+        out[start:stop] = field.to_int32(
+            words[:, start:stop].to(torch.int64).sum(dim=0))
+    return out
+
+
+def int_blend_params(params: torch.Tensor, wsum: torch.Tensor, count, alpha,
+                     *, frac_bits: int = field.FRAC_BITS) -> torch.Tensor:
+    """Decode + blend of the legacy int round: exact share-sum (int32 bit
+    patterns) -> mean over `count` shares -> rolling update of ONE params
+    row -> (N,) in params.dtype."""
+    p = params.to(torch.float32)
+    agg = field.decode_mean(wsum, torch.tensor(float(count),
+                                               device=p.device), frac_bits)
+    a = torch.as_tensor(alpha, dtype=torch.float32,
+                        device=p.device).reshape(())
+    return (p + a * (agg - p)).to(params.dtype)
+
+
+def rolling_update_int_reference(shares: torch.Tensor, params: torch.Tensor,
+                                 alpha, *,
+                                 frac_bits: int = field.FRAC_BITS):
+    """The legacy int round: (P, N) uint32 field shares
+    (`core.secure_agg.make_shares_int`), summed exactly and decoded +
+    blended by `int_blend_params` -> (N,) in params.dtype."""
+    return int_blend_params(params, field_wsum_reference(shares),
+                            shares.shape[0], alpha, frac_bits=frac_bits)
+
+
 def int_blend_rows(updates: torch.Tensor, wsum: torch.Tensor, alpha,
                    mask=None, *, frac_bits: int = field.FRAC_BITS):
     """Decode + blend of the int domain: exact survivor share-sum (int32
@@ -66,15 +126,18 @@ def int_blend_rows(updates: torch.Tensor, wsum: torch.Tensor, alpha,
 
 
 def field_shares_reference(updates: torch.Tensor, seed: int, mask=None, *,
-                           frac_bits: int = field.FRAC_BITS) -> torch.Tensor:
-    """The (P, N) uint32 field shares each institution would publish:
-    encode(update) +/- the survivor-gated pairwise `mask_bits` words."""
+                           frac_bits: int = field.FRAC_BITS,
+                           start: int = 0) -> torch.Tensor:
+    """The (P, N) uint32 field shares (int64 words) each institution would
+    publish: encode(update) +/- the survivor-gated pairwise `mask_bits`
+    words.  `start` is the PRG counter of column 0, so a caller can build
+    the shares of a long row one column chunk at a time."""
     P, N = updates.shape
     dev = updates.device
     sign = torch.as_tensor(masking.pair_sign_matrix(P), device=dev)
     pos, neg = _pair_gates(sign, _alive(mask, P, dev))
     pair = torch.arange(sign.shape[1], device=dev)[:, None]
-    offs = torch.arange(N, device=dev)[None, :]
+    offs = torch.arange(start, start + N, device=dev)[None, :]
     words = masking.mask_bits(seed, pair, offs, dev)
     q = field.encode_rows(updates.to(torch.float32), frac_bits)
     return _apply_pads(q, pos, neg, words)

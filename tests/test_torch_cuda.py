@@ -5,9 +5,13 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the Z_2^32 share-sum is exact; the float MPC round within
-atol = P * 1e-6 (the plain version sums the pads exactly in float64 and
-rounds once, the kernel in float32 pair by pair); the DP noise within rtol = 1e-5, atol = 1e-6 (log / cos of the
+Tolerances: the Z_2^32 share-sums (fused and legacy) are exact; the float
+MPC round within atol = P * 1e-6 (the plain version sums the pads exactly
+in float64 and rounds once, the kernel in float32 pair by pair); the
+legacy float aggregate within atol = P * 1e-6 plus one ulp of the output
+type (2^-7 relative in bf16, 2^-10 in f16: the two sum the P shares in
+another order, and torch divides a tensor by a scalar as a multiply by
+its reciprocal); the DP noise within rtol = 1e-5, atol = 1e-6 (log / cos of the
 card's libm against PyTorch's); flash attention within atol = rtol =
 2e-2 in bf16 and 2e-5 in fp32 (the JAX package's own bounds for its
 kernel against its plain version: the kernel sums in another order and
@@ -131,6 +135,145 @@ def test_federation_on_card_matches_cpu(cuda, mode):
                     tree_flatten(cpu.stacked)[0]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
     assert gpu.overlay.registry.verify_log()
+
+
+# ----------------------------------------------------------------------
+# the legacy two-stage round's aggregates: any P, ragged N, narrow params
+
+LEGACY_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+              torch.float16: 2.0 ** -10}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("N", [1, 3, 255, 4097, 109634])
+@pytest.mark.parametrize("P", [1, 2, 10, 17])
+def test_legacy_kernels_match_plain(cuda, P, N, dtype):
+    g = torch.Generator(cuda).manual_seed(P * 100003 + N)
+    shares = torch.randn((P, N), generator=g, device=cuda)
+    params = torch.randn((N,), generator=g, device=cuda).to(dtype)
+    for alpha in (1.0, 0.3):
+        before = agg_kernel.rolling_update_flat.launches
+        out = agg_kernel.rolling_update_flat(shares, params, alpha)
+        assert agg_kernel.rolling_update_flat.launches == before + 1
+        assert out.dtype == dtype and out.shape == (N,)
+        want = agg_ref.rolling_update_reference(shares, params, alpha)
+        torch.testing.assert_close(out.float(), want.float(), atol=P * 1e-6,
+                                   rtol=LEGACY_ULP[dtype])
+    words = torch.randint(-2 ** 31, 2 ** 31, (P, N), generator=g,
+                          device=cuda, dtype=torch.int64).to(
+        torch.int32).view(torch.uint32)
+    before = agg_kernel.field_wsum_flat.launches
+    wsum = agg_kernel.field_wsum_flat(words)
+    assert agg_kernel.field_wsum_flat.launches == before + 1
+    assert wsum.dtype == torch.int32 and wsum.shape == (N,)
+    assert torch.equal(wsum, agg_ref.field_wsum_reference(words))
+
+
+def _at_offset(t, k):
+    """A contiguous copy of `t` that starts k elements into its storage."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_legacy_kernels_take_offset_views(cuda, k, dtype):
+    """N % 4 == 0, but the operands start off a 16-byte boundary: the
+    kernels take the scalar path and agree with the plain versions."""
+    P, N = 3, 4096
+    g = torch.Generator(cuda).manual_seed(k)
+    shares = torch.randn((P, N), generator=g, device=cuda)
+    params = torch.randn((N,), generator=g, device=cuda).to(dtype)
+    want = agg_ref.rolling_update_reference(shares, params, 0.3)
+    for sh, pa in ((_at_offset(shares, k), params),
+                   (shares, _at_offset(params, k)),
+                   (_at_offset(shares, k), _at_offset(params, k))):
+        out = agg_kernel.rolling_update_flat(sh, pa, 0.3)
+        torch.testing.assert_close(out.float(), want.float(), atol=P * 1e-6,
+                                   rtol=LEGACY_ULP[dtype])
+    words = shares.view(torch.uint32)
+    wsum = agg_kernel.field_wsum_flat(_at_offset(words, k))
+    torch.cuda.synchronize()
+    assert torch.equal(wsum, agg_ref.field_wsum_reference(words))
+
+
+@pytest.mark.cuda
+def test_legacy_wrappers_raise_instead_of_falling_back(cuda):
+    shares = torch.zeros((3, 8), device=cuda)
+    params = torch.zeros((8,), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        agg_kernel.rolling_update_flat(shares.double(), params, 1.0)
+    with pytest.raises(ValueError, match="params must be float32"):
+        agg_kernel.rolling_update_flat(shares, params.double(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        agg_kernel.rolling_update_flat(shares.t().contiguous().t(), params,
+                                       1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        agg_kernel.rolling_update_flat(
+            shares, torch.zeros((16,), device=cuda)[::2], 1.0)
+    with pytest.raises(ValueError, match=r"params must be \(8,\)"):
+        agg_kernel.rolling_update_flat(shares, params[:4], 1.0)
+    words = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="uint32"):
+        agg_kernel.field_wsum_flat(words)
+    with pytest.raises(ValueError, match="contiguous"):
+        agg_kernel.field_wsum_flat(
+            words.t().contiguous().t().view(torch.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["float", "int"])
+def test_legacy_round_on_card_matches_cpu(cuda, domain):
+    """`secure_rolling_update` on the card (the masks drawn there, one
+    kernel launch) against the CPU run: the int round exactly at P = 4,
+    alpha = 1; the float round within atol = P * 1e-5 (the normals come
+    from each device's erfinv, and the pads cancel to fp32 rounding)."""
+    from repro_torch import random as prng
+    from repro_torch.core.secure_agg import secure_rolling_update
+    P, N = 4, 100_003
+    g = torch.Generator().manual_seed(5)
+    ups = [torch.randn(N, generator=g) for _ in range(P)]
+    params = torch.randn(N, generator=g)
+    key = prng.PRNGKey(17)
+    kernel = (agg_kernel.field_wsum_flat if domain == "int"
+              else agg_kernel.rolling_update_flat)
+    before = kernel.launches
+    got = secure_rolling_update([u.to(cuda) for u in ups], params.to(cuda),
+                                1.0, key, domain=domain)
+    assert kernel.launches == before + 1
+    want = secure_rolling_update(ups, params, 1.0, key, domain=domain)
+    if domain == "int":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=P * 1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["churn", "quorum_loss"])
+def test_fault_run_on_card_matches_cpu(cuda, scenario):
+    """A small federation under a fault schedule on the card and on the
+    CPU: the same survivor lists and commits, params within atol = 1e-4,
+    and the masked kernel launched once a round."""
+    from repro_torch.chaos import standard_scenarios
+    kw = dict(n_institutions=5, image_size=16, width_scale=0.25)
+    sched = standard_scenarios(0)[scenario]
+    cpu = CNNFederation(sched, 0, device="cpu", **kw)
+    gpu = CNNFederation(sched, 0, device=cuda, **kw)
+    before = agg_kernel.masked_rolling_update_flat.launches
+    _, ctrs = cpu.run_rounds(6)
+    _, gtrs = gpu.run_rounds(6)
+    assert agg_kernel.masked_rolling_update_flat.launches == before + 6
+    assert [t.survivors for t in gtrs] == [t.survivors for t in ctrs]
+    assert [t.committed for t in gtrs] == [t.committed for t in ctrs]
+    for a, b in zip(tree_flatten(gpu.stacked)[0],
+                    tree_flatten(cpu.stacked)[0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
 
 
 # ----------------------------------------------------------------------

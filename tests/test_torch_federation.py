@@ -274,8 +274,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_knobs_raise():
+    """Meshes are not ported (fault and attack schedules are:
+    tests/test_torch_chaos.py)."""
     with pytest.raises(NotImplementedError):
-        CNNFederation(object(), 0, n_institutions=2, device="cpu")
+        CNNFederation(None, 0, n_institutions=2, device="cpu",
+                      mesh=object())
+    ov = DecentralizedOverlay(OverlayConfig(n_institutions=2))
+    stacked = {"w": torch.zeros((2, 3))}
     with pytest.raises(NotImplementedError):
-        DecentralizedOverlay(OverlayConfig(n_institutions=2,
-                                           attack_schedule=object()))
+        ov.run_rounds(stacked, (torch.zeros((1, 10, 2, 1)),), None,
+                      prng.PRNGKey(0), 1, mesh=object())
