@@ -94,22 +94,42 @@ ROUNDS = 3
 MODES = ("float", "int", "dp")
 
 # flash attention on the card vs its plain version:
-# (B, S, Hq, Hkv, hd, dtype, causal, window)
+# (B, S, Hq, Hkv, hd, dtype, causal, window, layout); layout "" gives q,
+# k, v their own (B, S, H, hd) tensors, "qkv" slices them from one fused
+# (B, S, Hq + 2 Hkv, hd) projection (row stride wider than H hd), "odd"
+# starts q one element into its storage (no 16-byte alignment: the bf16
+# kernel's plain-load path)
 FLASH_CASES = [
-    (1, 1000, 16, 8, 128, torch.bfloat16, True, 0),   # qwen3, ragged S
-    (2, 192, 6, 3, 32, torch.bfloat16, True, 0),
-    (2, 192, 6, 3, 32, torch.float32, True, 0),
-    (1, 512, 4, 1, 80, torch.bfloat16, True, 0),
-    (2, 256, 15, 5, 64, torch.bfloat16, True, 0),     # group 3
-    (2, 256, 4, 2, 64, torch.float32, True, 16),
-    (2, 256, 4, 2, 64, torch.float32, True, 64),
-    (2, 256, 4, 2, 64, torch.float32, True, 100),
-    (1, 200, 4, 2, 64, torch.float32, False, 0),      # non-causal ragged
+    (1, 1000, 16, 8, 128, torch.bfloat16, True, 0, ""),   # qwen3, ragged S
+    (2, 192, 6, 3, 32, torch.bfloat16, True, 0, ""),
+    (2, 192, 6, 3, 32, torch.float32, True, 0, ""),
+    (1, 512, 4, 1, 80, torch.bfloat16, True, 0, ""),
+    (2, 256, 15, 5, 64, torch.bfloat16, True, 0, ""),     # group 3
+    (2, 256, 4, 2, 64, torch.float32, True, 16, ""),
+    (2, 256, 4, 2, 64, torch.float32, True, 64, ""),
+    (2, 256, 4, 2, 64, torch.float32, True, 100, ""),
+    (1, 200, 4, 2, 64, torch.float32, False, 0, ""),      # non-causal ragged
 ]
 FLASH_CASES.append(
-    (1, 1152, 25, 5, 64, torch.bfloat16, True, 1024))  # hymba's prefill
+    (1, 1152, 25, 5, 64, torch.bfloat16, True, 1024, ""))  # hymba's prefill
+# the bf16 kernel's tile edges (64 q rows a warpgroup, 64 kv rows a tile):
+# S on each side of one and two tiles, a window ending inside a kv tile,
+# GQA group 5, hd 80 ragged, non-causal, fused and unaligned layouts
+FLASH_CASES += [
+    (1, 1, 4, 2, 64, torch.bfloat16, True, 0, ""),
+    (1, 63, 4, 2, 128, torch.bfloat16, True, 0, ""),
+    (1, 65, 4, 2, 128, torch.bfloat16, True, 0, ""),
+    (1, 127, 4, 2, 32, torch.bfloat16, True, 0, ""),
+    (1, 129, 4, 2, 80, torch.bfloat16, True, 0, ""),
+    (1, 300, 4, 2, 64, torch.bfloat16, True, 100, ""),
+    (1, 130, 10, 2, 64, torch.bfloat16, True, 0, ""),     # group 5
+    (1, 200, 4, 2, 64, torch.bfloat16, False, 0, ""),
+    (2, 190, 8, 2, 128, torch.bfloat16, True, 0, "qkv"),
+    (2, 190, 8, 2, 64, torch.bfloat16, True, 0, "odd"),
+]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FLASH_TIMED = (1, 1024, 16, 8, 128)       # qwen3's prefill at S = 1024
+FLASH_HYMBA, HYMBA_WINDOW = (1, 1152, 25, 5, 64), 1024   # hymba's prefill
 # WKV6 on the card vs its plain version: (B, T, H, hd, r/k/v dtype,
 # w dtype, nonzero s0, strided input)
 WKV6_CASES = [
@@ -119,8 +139,16 @@ WKV6_CASES = [
     (2, 40, 3, 16, torch.bfloat16, torch.bfloat16, True, False),
     (1, 33, 2, 128, torch.float32, torch.float32, True, False),
     (2, 50, 4, 64, torch.bfloat16, torch.float32, True, True),
+    # the split kernel's edges: 16-column groups and 8-row lanes at hd 16
+    # / 32 / 128, T = 1 at other hd, T not a multiple of the 16-token chunk
+    (2, 13, 3, 128, torch.bfloat16, torch.float32, True, False),
+    (1, 21, 5, 32, torch.bfloat16, torch.bfloat16, True, True),
+    (3, 1, 2, 16, torch.float32, torch.float32, True, False),
+    (8, 1, 4, 128, torch.bfloat16, torch.float32, True, False),
+    (1, 1001, 40, 64, torch.bfloat16, torch.float32, True, False),
 ]
 WKV6_TIMED = (1, 1024, 40, 64)            # rwkv6-3b's prefill at T = 1024
+WKV6_DECODE = (8, 1, 40, 64)              # one decode tick of 8 slots
 # the selective scan on the card vs its plain version: (Bz, T, di, N,
 # dtype, nonzero h0)
 SSM_CASES = [
@@ -131,6 +159,7 @@ SSM_CASES = [
     (1, 37, 96, 5, torch.float32, True),
 ]
 SSM_TIMED = (1, 1152, 3200, 16)           # hymba-1.5b's prefill, 1024 + 128
+SSM_DECODE = (8, 1, 3200, 16)             # one decode tick of 8 slots
 # kernel vs plain: bf16 y within the flash kernel's 2e-2 (atol = rtol);
 # fp32 y and the fp32 states within 1e-4 of the largest magnitude (the
 # kernels sum in another order than the plain versions)
@@ -216,24 +245,28 @@ def bound(kind, P, N, alive_rows):
     return nbytes / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
 
 
-def flash_bound(B, S, Hq, Hkv, hd, itemsize=2):
+def flash_bound(B, S, Hq, Hkv, hd, itemsize=2, window=0):
     """(bytes_ms, ops_ms) of causal attention: q, k, v and o moved once;
     4 * hd flops per unmasked (q, k) pair and head (QK^T and PV, a
-    multiply-add each), S(S+1)/2 pairs, at the bf16 tensor-core rate."""
+    multiply-add each), S(S+1)/2 pairs (fewer under a window), at the bf16
+    tensor-core rate."""
     nbytes = B * S * hd * (2 * Hq + 2 * Hkv) * itemsize
-    flops = 4 * hd * B * Hq * S * (S + 1) / 2
+    W = min(window, S) if window > 0 else S
+    pairs = W * (W + 1) / 2 + (S - W) * W
+    flops = 4 * hd * B * Hq * pairs
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TC_FLOPS * 1e3
 
 
 def wkv6_bound(B, T, H, hd, itemsize=2, w_itemsize=4):
     """(bytes_ms, ops_ms) of WKV6: r, k, v, w read and y written once, u
-    and the two states moved once; 7 fp32 operations per state element
-    and token (k·v, u·kv, S + u·kv, · r, the sum over i, w·S, + kv)."""
+    and the two states moved once; 5 fp32 operations per state element
+    and token (r·S and the sum over i, k·v, w·S + kv), the bonus term
+    y += v_j Σ_i r_i u_i k_i costing O(hd) a token, not O(hd²)."""
     n = B * T * H * hd
     nbytes = (n * (4 * itemsize + w_itemsize) + H * hd * 4
               + 2 * B * H * hd * hd * 4)
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            7 * n * hd / FP32_OPS_PER_S * 1e3)
+            5 * n * hd / FP32_OPS_PER_S * 1e3)
 
 
 def ssm_bound(Bz, T, di, N, itemsize=4):
@@ -285,19 +318,23 @@ def kernel_median_ms(fn, iters, tag):
     `tag`: fn(i) is called iters + 1 times under torch.profiler's CUDA
     activity, the first call a lead-in, and the median is taken over the
     last `iters` launches the trace recorded, in start order.  Late in a
-    long process the trace can miss the first launch of its window (seen
-    on the card: one of 101); the lead-in absorbs it, and a trace that
-    recorded fewer than `iters` launches fails the run."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for i in range(iters + 1):
-            fn(i)
-        torch.cuda.synchronize()
-    mine = sorted((e.time_range.start, e.time_range.elapsed_us())
-                  for e in prof.events()
-                  if str(e.device_type).endswith("CUDA") and tag in e.name)
-    assert len(mine) >= iters, (tag, len(mine), iters + 1)
-    return float(np.median([us for _, us in mine[-iters:]])) / 1e3
+    long process the trace can miss launches at the start of its window
+    (seen on the card: one of 101, two of 22); the lead-in absorbs one, a
+    trace that recorded fewer than `iters` is taken again, and three such
+    traces fail the run."""
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(iters + 1):
+                fn(i)
+            torch.cuda.synchronize()
+        mine = sorted((e.time_range.start, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")
+                      and tag in e.name)
+        if len(mine) >= iters:
+            return float(np.median([us for _, us in mine[-iters:]])) / 1e3
+    raise AssertionError((tag, len(mine), iters + 1))
 
 
 def print_resource_usage(lib_path, tag):
@@ -415,11 +452,10 @@ def check_flash(dev):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     worst = 0.0
-    for i, (B, S, Hq, Hkv, hd, dtype, causal, window) in enumerate(
+    for i, (B, S, Hq, Hkv, hd, dtype, causal, window, layout) in enumerate(
             FLASH_CASES):
         g = torch.Generator(dev).manual_seed(i)
-        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
-                   .to(dtype) for h in (Hq, Hkv, Hkv))
+        q, k, v = flash_inputs(g, dev, B, S, Hq, Hkv, hd, dtype, layout)
         before = fa_kernel.flash_attention_bhsd.launches
         got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
         want = fa_ref.attention_reference(
@@ -434,8 +470,24 @@ def check_flash(dev):
         worst = max(worst, err)
         print(f"check flash_attention_bhsd (B,S,Hq,Hkv,hd)="
               f"{(B, S, Hq, Hkv, hd)} {str(dtype)[6:]} causal={causal} "
-              f"window={window}: max |err| {err:.3g} (tol {tol})")
+              f"window={window}{' ' + layout if layout else ''}: max |err| "
+              f"{err:.3g} (tol {tol})")
     return worst
+
+
+def flash_inputs(g, dev, B, S, Hq, Hkv, hd, dtype, layout):
+    """q, k, v in the model layout (B, S, H, hd), laid out as `layout`
+    says (FLASH_CASES)."""
+    if layout == "qkv":
+        qkv = torch.randn((B, S, Hq + 2 * Hkv, hd), generator=g,
+                          device=dev).to(dtype)
+        return qkv.split([Hq, Hkv, Hkv], dim=2)
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
+               .to(dtype) for h in (Hq, Hkv, Hkv))
+    if layout == "odd":
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+        assert q.data_ptr() % 16
+    return q, k, v
 
 
 def rel_err(got, want):
@@ -842,6 +894,9 @@ def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
               + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
               + f" ({n_layers} layers x {n_prefill} prefills"
               + (f" + {ticks} ticks" if cfg.family != "dense" else "")
+              + f"; prefill {n_layers * n_prefill}"
+              + (f", decode {n_layers * ticks} each recurrence"
+                 if cfg.family != "dense" else "")
               + f") | peak device memory {serve_peak:.2f} GiB ({resident:.2f} "
               f"GiB resident: params and decode state)")
 
@@ -966,7 +1021,7 @@ def time_flash(dev):
     launch_ms = cuda_ms(run, sets, 100)
     p_ms = cuda_ms(plain, sets, 10)
     k_ms = kernel_median_ms(lambda i: run(sets[i % 8]), 101,
-                            "flash_attention_kernel")
+                            "flash_attention_bf16_kernel")
     library(bhsd[0])
     torch.cuda.synchronize()
     lib = device_us(lambda i: library(bhsd[i % 8]), 101)
@@ -983,15 +1038,28 @@ def time_flash(dev):
           f"bound {b_ms * 1e3:.2f} us by {b_by} (bytes {bytes_ms * 1e3:.2f} "
           f"us, operations {ops_ms * 1e3:.2f} us); kernel at "
           f"{b_ms / k_ms:.2%} of bound")
+    B, S, Hq, Hkv, hd = FLASH_HYMBA
+    hy = [[torch.randn((B, S, h, hd), generator=g, device=dev).to(
+        torch.bfloat16) for h in (Hq, Hkv, Hkv)] for _ in range(8)]
+    hy_ms = kernel_median_ms(
+        lambda i: fa_ops.flash_attention(*hy[i % 8], causal=True,
+                                         window=HYMBA_WINDOW), 101,
+        "flash_attention_bf16_kernel")
+    hy_bound = max(flash_bound(B, S, Hq, Hkv, hd, window=HYMBA_WINDOW))
+    print(f"time flash_attention_bhsd {FLASH_HYMBA} bf16 causal window "
+          f"{HYMBA_WINDOW}: kernel median {hy_ms * 1e3:.1f} us on the card "
+          f"| bound {hy_bound * 1e3:.2f} us; kernel at "
+          f"{hy_bound / hy_ms:.2%} of bound")
     return k_ms, p_ms, b_ms, b_by, lib_ms
 
 
-def time_recurrent(dev, name):
-    """The WKV6 or selective-scan kernel at its main path's prefill shape:
-    profiler median over 101 launches cycling 4 input sets (more than the
-    50 MB L2 together), the plain version's time on the same sets.
-    Library: none (no single PyTorch call computes either recurrence).
-    Returns (ms, plain_ms, bound_ms, bound_by)."""
+def time_recurrent(dev, name, shape):
+    """The WKV6 or selective-scan kernel at `shape` (the main path's
+    prefill, or one decode tick): profiler median over 101 launches
+    cycling through input sets that together exceed the 50 MB L2, the
+    plain version's time on the same sets.  Library: none (no single
+    PyTorch call computes either recurrence).  Returns (ms, plain_ms,
+    bound_ms, bound_by)."""
     g = torch.Generator(dev).manual_seed(9)
 
     def randn(*shape):
@@ -999,27 +1067,34 @@ def time_recurrent(dev, name):
     if name == "wkv6_bthd":
         from repro_torch.kernels.rwkv6_scan import kernel as mod
         from repro_torch.kernels.rwkv6_scan import ref
-        B, T, H, hd = shape = WKV6_TIMED
-        sets = [(randn(*shape).bfloat16(), randn(*shape).bfloat16(),
-                 randn(*shape).bfloat16(),
-                 torch.exp(-torch.exp(randn(*shape) - 1.0)),
-                 randn(H, hd) * 0.1, torch.zeros((B, H, hd, hd), device=dev))
-                for _ in range(4)]
-        run, plain, tag = mod.wkv6_bthd, ref.wkv6_reference, "wkv6_kernel"
+        B, T, H, hd = shape
         bytes_ms, ops_ms = wkv6_bound(*shape)
+
+        def make():
+            return (randn(*shape).bfloat16(), randn(*shape).bfloat16(),
+                    randn(*shape).bfloat16(),
+                    torch.exp(-torch.exp(randn(*shape) - 1.0)),
+                    randn(H, hd) * 0.1, torch.zeros((B, H, hd, hd),
+                                                    device=dev))
+        run, plain, tag = mod.wkv6_bthd, ref.wkv6_reference, "wkv6_kernel"
     else:
         from repro_torch.kernels.ssm_scan import kernel as mod
         from repro_torch.kernels.ssm_scan import ref
-        Bz, T, di, N = shape = SSM_TIMED
-        sets = [(torch.sigmoid(randn(Bz, T, di) + 2.0), randn(Bz, T, di),
-                 randn(Bz, T, N), randn(Bz, T, N),
-                 torch.zeros((Bz, di, N), device=dev)) for _ in range(4)]
+        Bz, T, di, N = shape
+        bytes_ms, ops_ms = ssm_bound(*shape)
+
+        def make():
+            return (torch.sigmoid(randn(Bz, T, di) + 2.0), randn(Bz, T, di),
+                    randn(Bz, T, N), randn(Bz, T, N),
+                    torch.zeros((Bz, di, N), device=dev))
         run, plain = mod.ssm_scan_btd, ref.ssm_scan_reference
         tag = "ssm_scan_kernel"
-        bytes_ms, ops_ms = ssm_bound(*shape)
+    # sets enough that their bytes (bytes_ms at the HBM rate) pass 64 MB
+    n_sets = max(4, math.ceil(64e6 / (bytes_ms * 1e-3 * HBM_BYTES_PER_S)))
+    sets = [make() for _ in range(n_sets)]
     launch_ms = cuda_ms(lambda x: run(*x), sets, 100)
     p_ms = cuda_ms(lambda x: plain(*x), sets, 4)
-    k_ms = kernel_median_ms(lambda i: run(*sets[i % 4]), 101, tag)
+    k_ms = kernel_median_ms(lambda i: run(*sets[i % n_sets]), 101, tag)
     b_ms = max(bytes_ms, ops_ms)
     b_by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"time {name} {shape}: kernel median {k_ms * 1e3:.1f} us on the "
@@ -1503,8 +1578,10 @@ def main() -> int:
     rows = time_secure_agg(dev, kernels, totals)
     rows += time_legacy(dev, legacy, legacy_launches)
     timed = {"flash_attention_bhsd": time_flash(dev)}
-    for name in ("wkv6_bthd", "ssm_scan_btd"):
-        timed[name] = time_recurrent(dev, name) + (None,)
+    for name, prefill, decode in (("wkv6_bthd", WKV6_TIMED, WKV6_DECODE),
+                                  ("ssm_scan_btd", SSM_TIMED, SSM_DECODE)):
+        timed[name] = time_recurrent(dev, name, prefill) + (None,)
+        time_recurrent(dev, name, decode)
 
     lm_launches = dict.fromkeys(lm_kernels, 0)
     for arch, depth, lr in LM_PATHS:

@@ -96,6 +96,36 @@ _SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
 _ONE_F32_BITS = 0x3F800000
 NORMAL_CHUNK = 1 << 25   # counters per chunk: ~1.5 GB of int64 transients
 
+# XLA's single-precision ErfInv (M. Giles, "Approximating the erfinv
+# function"), which jax.random.normal runs: w = -log1p(-x^2), then a
+# degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3 (w >= 5), times x
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def _horner(w: torch.Tensor, coefs) -> torch.Tensor:
+    p = torch.mul(w, coefs[0]).add_(coefs[1])
+    for c in coefs[2:]:
+        p.mul_(w).add_(c)
+    return p
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erf_inv of `x` in (-1, 1), as plain torch ops: each
+    step rounds to float32 as XLA's does (XLA may contract a multiply
+    and add into one FMA, and log1p may differ in the last bit, so the
+    two agree within a few ulps).  Only the few elements with w >= 5
+    (|x| > 0.9966) take the second polynomial."""
+    w = torch.log1p(x * x.neg()).neg_()
+    far = (w >= 5.0).nonzero().squeeze(1)
+    p = _horner(w - 2.5, _ERFINV_W_LT_5)
+    p[far] = _horner(w[far].sqrt_().sub_(3.0), _ERFINV_W_GE_5)
+    return p.mul_(x)
+
 
 def _threefry2x32_torch(key, x0: torch.Tensor, x1: torch.Tensor):
     """`threefry2x32` on int64 tensors of uint32 values (consumed)."""
@@ -135,14 +165,14 @@ def normal(key: np.ndarray, shape, *, device=None,
            chunk: int = NORMAL_CHUNK) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` on `device` (default the
     CPU): sqrt(2) * erfinv(u) of the uniform above.  The bits and u equal
-    JAX's bit for bit; erfinv is torch's, another polynomial than XLA's,
-    so the normals agree within a tolerance (tests/test_torch_legacy_agg.py
-    states it)."""
+    JAX's bit for bit; erfinv is XLA's polynomial (`_erfinv_f32`), so the
+    normals agree within a few ulps (tests/test_torch_legacy_agg.py states
+    the tolerance)."""
     shape = tuple(int(d) for d in shape)
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
         u = _normal_uniform(_bits_range(key, start, stop, out.device))
-        out[start:stop] = torch.erfinv(u).mul_(_SQRT2_F32)
+        out[start:stop] = _erfinv_f32(u).mul_(_SQRT2_F32)
     return out.reshape(shape)

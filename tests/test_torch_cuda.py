@@ -233,7 +233,7 @@ def test_legacy_round_on_card_matches_cpu(cuda, domain):
     """`secure_rolling_update` on the card (the masks drawn there, one
     kernel launch) against the CPU run: the int round exactly at P = 4,
     alpha = 1; the float round within atol = P * 1e-5 (the normals come
-    from each device's erfinv, and the pads cancel to fp32 rounding)."""
+    from each device's log1p, and the pads cancel to fp32 rounding)."""
     from repro_torch import random as prng
     from repro_torch.core.secure_agg import secure_rolling_update
     P, N = 4, 100_003
@@ -278,26 +278,51 @@ def test_fault_run_on_card_matches_cpu(cuda, scenario):
 
 # ----------------------------------------------------------------------
 # flash attention: the smoke's shapes, (B, S, Hq, Hkv, hd, dtype, causal,
-# window)
+# window, layout); layout "" gives q, k, v tensors of their own, "qkv"
+# slices them from one fused projection, "odd" starts q one element into
+# its storage (not 16-byte aligned: the bf16 kernel's plain-load path)
 FLASH_CASES = [
-    (1, 1000, 16, 8, 128, torch.bfloat16, True, 0),   # qwen3, ragged S
-    (2, 192, 6, 3, 32, torch.bfloat16, True, 0),
-    (2, 192, 6, 3, 32, torch.float32, True, 0),
-    (1, 512, 4, 1, 80, torch.bfloat16, True, 0),
-    (2, 256, 15, 5, 64, torch.bfloat16, True, 0),
-    (2, 256, 4, 2, 64, torch.float32, True, 16),
-    (2, 256, 4, 2, 64, torch.float32, True, 64),
-    (2, 256, 4, 2, 64, torch.float32, True, 100),
-    (1, 200, 4, 2, 64, torch.float32, False, 0),      # non-causal ragged
-    (1, 1152, 25, 5, 64, torch.bfloat16, True, 1024),  # hymba's prefill
+    (1, 1000, 16, 8, 128, torch.bfloat16, True, 0, ""),   # qwen3, ragged S
+    (2, 192, 6, 3, 32, torch.bfloat16, True, 0, ""),
+    (2, 192, 6, 3, 32, torch.float32, True, 0, ""),
+    (1, 512, 4, 1, 80, torch.bfloat16, True, 0, ""),
+    (2, 256, 15, 5, 64, torch.bfloat16, True, 0, ""),
+    (2, 256, 4, 2, 64, torch.float32, True, 16, ""),
+    (2, 256, 4, 2, 64, torch.float32, True, 64, ""),
+    (2, 256, 4, 2, 64, torch.float32, True, 100, ""),
+    (1, 200, 4, 2, 64, torch.float32, False, 0, ""),      # non-causal ragged
+    (1, 1152, 25, 5, 64, torch.bfloat16, True, 1024, ""),  # hymba's prefill
+    # the bf16 kernel's tile edges (64 q rows a warpgroup, 64 kv rows a
+    # tile): S on each side of one and two tiles, a window ending inside
+    # a kv tile, GQA group 5, hd 80 ragged, non-causal, fused and
+    # unaligned layouts
+    (1, 1, 4, 2, 64, torch.bfloat16, True, 0, ""),
+    (1, 63, 4, 2, 128, torch.bfloat16, True, 0, ""),
+    (1, 65, 4, 2, 128, torch.bfloat16, True, 0, ""),
+    (1, 127, 4, 2, 32, torch.bfloat16, True, 0, ""),
+    (1, 129, 4, 2, 80, torch.bfloat16, True, 0, ""),
+    (1, 300, 4, 2, 64, torch.bfloat16, True, 100, ""),
+    (1, 130, 10, 2, 64, torch.bfloat16, True, 0, ""),     # group 5
+    (1, 200, 4, 2, 64, torch.bfloat16, False, 0, ""),
+    (2, 190, 8, 2, 128, torch.bfloat16, True, 0, "qkv"),
+    (2, 190, 8, 2, 64, torch.bfloat16, True, 0, "odd"),
 ]
 
 
-def _flash_inputs(B, S, Hq, Hkv, hd, dtype, device, seed=0):
+def _flash_inputs(B, S, Hq, Hkv, hd, dtype, device, layout="", seed=0):
     rng = np.random.default_rng([seed, B, S, Hq, Hkv, hd])
-    return [torch.from_numpy(rng.standard_normal(
+    if layout == "qkv":
+        qkv = torch.from_numpy(rng.standard_normal(
+            (B, S, Hq + 2 * Hkv, hd)).astype(np.float32)).to(device=device,
+                                                              dtype=dtype)
+        return list(qkv.split([Hq, Hkv, Hkv], dim=2))
+    q, k, v = [torch.from_numpy(rng.standard_normal(
         (B, S, h, hd)).astype(np.float32)).to(device=device, dtype=dtype)
         for h in (Hq, Hkv, Hkv)]
+    if layout == "odd":
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+        assert q.data_ptr() % 16
+    return [q, k, v]
 
 
 def _flash_plain(q, k, v, causal, window):
@@ -309,8 +334,8 @@ def _flash_plain(q, k, v, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_kernel_matches_plain(cuda, case):
-    B, S, Hq, Hkv, hd, dtype, causal, window = case
-    q, k, v = _flash_inputs(B, S, Hq, Hkv, hd, dtype, cuda)
+    B, S, Hq, Hkv, hd, dtype, causal, window, layout = case
+    q, k, v = _flash_inputs(B, S, Hq, Hkv, hd, dtype, cuda, layout)
     before = fa_kernel.flash_attention_bhsd.launches
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -333,6 +358,19 @@ def test_flash_kernel_layout_entry_and_empty_rows(cuda):
     want = fa_ref.attention_reference(q, k, v, causal=True, window=8)
     torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
     assert bool((out[:, :, 48:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=str)
+def test_flash_kernel_without_keys_returns_zeros(cuda, dtype):
+    """Skv = 0: no q row has a key, so every row is 0 (the bf16 kernel
+    takes its plain loads: a tensor map has no zero dimension)."""
+    q = torch.ones((2, 4, 70, 128), device=cuda, dtype=dtype)
+    kv = torch.ones((2, 2, 0, 128), device=cuda, dtype=dtype)
+    for causal in (True, False):
+        out = fa_kernel.flash_attention_bhsd(q, kv, kv, causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and bool((out == 0).all())
 
 
 @pytest.mark.cuda
@@ -374,6 +412,13 @@ WKV6_CASES = [
     (2, 40, 3, 16, torch.bfloat16, torch.bfloat16, True, False),
     (1, 33, 2, 128, torch.float32, torch.float32, True, False),
     (2, 50, 4, 64, torch.bfloat16, torch.float32, True, True),
+    # the split kernel's edges: 16-column groups and 8-row lanes at hd 16
+    # / 32 / 128, T = 1 at other hd, T not a multiple of the 16-token chunk
+    (2, 13, 3, 128, torch.bfloat16, torch.float32, True, False),
+    (1, 21, 5, 32, torch.bfloat16, torch.bfloat16, True, True),
+    (3, 1, 2, 16, torch.float32, torch.float32, True, False),
+    (8, 1, 4, 128, torch.bfloat16, torch.float32, True, False),
+    (1, 1001, 40, 64, torch.bfloat16, torch.float32, True, False),
 ]
 SSM_CASES = [
     (1, 1152, 3200, 16, torch.float32, False),
