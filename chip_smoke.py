@@ -150,16 +150,53 @@ WKV6_CASES = [
 WKV6_TIMED = (1, 1024, 40, 64)            # rwkv6-3b's prefill at T = 1024
 WKV6_DECODE = (8, 1, 40, 64)              # one decode tick of 8 slots
 # the selective scan on the card vs its plain version: (Bz, T, di, N,
-# dtype, nonzero h0)
+# dtype, nonzero h0, inputs); inputs "" are contiguous with a =
+# sigmoid(randn + 2), "strided" reads a every other token of a (Bz, 2T,
+# di) tensor and bx from the first di columns of a (Bz, T, di + 8) one
+# (16-byte aligned rows: TMA through strides), "odd" starts a and bx one
+# element into their storage (the element-by-element copies), "a1" has
+# a = 1 and "a0" a in (1e-4, 1e-2) (a chunk's decay product underflows
+# to 0)
 SSM_CASES = [
-    (1, 1152, 3200, 16, torch.float32, False),    # hymba's prefill
-    (8, 1, 3200, 16, torch.float32, True),        # decode
-    (2, 100, 1001, 16, torch.float32, True),      # ragged di
-    (2, 70, 515, 8, torch.bfloat16, True),
-    (1, 37, 96, 5, torch.float32, True),
+    (1, 1152, 3200, 16, torch.float32, False, ""),    # hymba's prefill
+    (8, 1, 3200, 16, torch.float32, True, ""),        # decode
+    (2, 100, 1001, 16, torch.float32, True, ""),      # ragged di
+    (2, 70, 515, 8, torch.bfloat16, True, ""),
+    (1, 37, 96, 5, torch.float32, True, ""),
+    # the redesign's edges: T on each side of 4 boxes of 16 tokens, T = 2
+    # and each side of the decode kernel's T <= 8, Bz = 3 at hymba's
+    # prefill, N = 1 and 32, strided and unaligned views, decays of 1 and
+    # near 0
+    (2, 63, 384, 16, torch.float32, True, ""),
+    (2, 64, 384, 16, torch.bfloat16, True, ""),
+    (2, 65, 384, 16, torch.float32, True, ""),
+    (3, 2, 640, 16, torch.float32, True, ""),
+    (2, 7, 300, 16, torch.float32, True, ""),
+    (2, 8, 300, 5, torch.bfloat16, True, ""),
+    (2, 9, 300, 16, torch.float32, True, ""),
+    (3, 1152, 3200, 16, torch.float32, True, ""),
+    (2, 200, 256, 1, torch.float32, True, ""),
+    (2, 200, 256, 32, torch.float32, True, ""),
+    (2, 130, 256, 32, torch.bfloat16, True, ""),
+    (2, 150, 512, 16, torch.float32, True, "strided"),
+    (2, 150, 512, 16, torch.bfloat16, True, "odd"),
+    (1, 1152, 256, 16, torch.float32, True, "a1"),
+    (1, 1152, 256, 16, torch.float32, True, "a0"),
+    # N a multiple of 4 below its padded NP (the decode kernel's quads
+    # past a row's end hold none), at T = 1 and in a sequence
+    (8, 1, 3200, 12, torch.float32, True, ""),
+    (4, 1, 515, 24, torch.float32, True, ""),
+    (2, 5, 300, 20, torch.bfloat16, True, ""),
+    (2, 1, 256, 28, torch.float32, True, ""),
+    (2, 100, 300, 12, torch.float32, True, ""),
+    # T on each side of the 128-token chunk
+    (2, 127, 384, 16, torch.float32, True, ""),
+    (2, 128, 384, 16, torch.bfloat16, True, ""),
+    (2, 129, 384, 16, torch.float32, True, ""),
 ]
 SSM_TIMED = (1, 1152, 3200, 16)           # hymba-1.5b's prefill, 1024 + 128
 SSM_DECODE = (8, 1, 3200, 16)             # one decode tick of 8 slots
+SSM_REPEATS = 20                          # calls held bit-identical to one
 # kernel vs plain: bf16 y within the flash kernel's 2e-2 (atol = rtol);
 # fp32 y and the fp32 states within 1e-4 of the largest magnitude (the
 # kernels sum in another order than the plain versions)
@@ -245,16 +282,17 @@ def bound(kind, P, N, alive_rows):
     return nbytes / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
 
 
-def flash_bound(B, S, Hq, Hkv, hd, itemsize=2, window=0):
+def flash_bound(B, S, Hq, Hkv, hd, itemsize=2, window=0,
+                rate=BF16_TC_FLOPS):
     """(bytes_ms, ops_ms) of causal attention: q, k, v and o moved once;
     4 * hd flops per unmasked (q, k) pair and head (QK^T and PV, a
-    multiply-add each), S(S+1)/2 pairs (fewer under a window), at the bf16
-    tensor-core rate."""
+    multiply-add each), S(S+1)/2 pairs (fewer under a window), at `rate`
+    (the bf16 tensor-core rate; fp32 inputs: the fp32 rate)."""
     nbytes = B * S * hd * (2 * Hq + 2 * Hkv) * itemsize
     W = min(window, S) if window > 0 else S
     pairs = W * (W + 1) / 2 + (S - W) * W
     flops = 4 * hd * B * Hq * pairs
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TC_FLOPS * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
 
 
 def wkv6_bound(B, T, H, hd, itemsize=2, w_itemsize=4):
@@ -548,19 +586,44 @@ def check_wkv6(dev):
     return worst
 
 
+def ssm_view(x, kind, which):
+    """a or bx (`which`), (Bz, T, di), laid out as SSM_CASES' `kind`
+    says."""
+    Bz, T, di = x.shape
+    if kind == "strided":
+        if which == "a":
+            big = torch.zeros((Bz, 2 * T, di), dtype=x.dtype, device=x.device)
+            big[:, ::2] = x
+            return big[:, ::2]
+        big = torch.zeros((Bz, T, di + 8), dtype=x.dtype, device=x.device)
+        big[..., :di] = x
+        return big[..., :di]
+    if kind == "odd":
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        flat[1:] = x.flatten()
+        return flat[1:].view(x.shape)
+    return x
+
+
 def check_ssm(dev):
     """The selective-scan kernel against its plain version on every
     listed shape; returns the largest |err| of y."""
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan import ref as ssm_ref
     worst = 0.0
-    for i, (Bz, T, di, N, dtype, h0_nz) in enumerate(SSM_CASES):
+    for i, (Bz, T, di, N, dtype, h0_nz, kind) in enumerate(SSM_CASES):
         g = torch.Generator(dev).manual_seed(200 + i)
 
         def randn(*shape):
             return torch.randn(shape, generator=g, device=dev)
-        a = torch.sigmoid(randn(Bz, T, di) + 2.0).to(dtype)
-        bx = randn(Bz, T, di).to(dtype)
+        a = torch.sigmoid(randn(Bz, T, di) + 2.0)
+        if kind == "a1":
+            a = torch.ones_like(a)
+        elif kind == "a0":
+            a = 1e-4 + (1e-2 - 1e-4) * torch.rand(a.shape, generator=g,
+                                                  device=dev)
+        a = ssm_view(a.to(dtype), kind, "a")
+        bx = ssm_view(randn(Bz, T, di).to(dtype), kind, "bx")
         Bm, Cm = randn(Bz, T, N).to(dtype), randn(Bz, T, N).to(dtype)
         h0 = randn(Bz, di, N) if h0_nz else torch.zeros((Bz, di, N),
                                                         device=dev)
@@ -574,9 +637,27 @@ def check_ssm(dev):
         assert rel_err(h, h_ref) <= REC_TOL_F32, rel_err(h, h_ref)
         worst = max(worst, err)
         print(f"check ssm_scan_btd (Bz,T,di,N)={(Bz, T, di, N)} "
-              f"{str(dtype)[6:]} h0={'randn' if h0_nz else 0}: y max |err| "
+              f"{str(dtype)[6:]} h0={'randn' if h0_nz else 0}"
+              f"{' ' + kind if kind else ''}: y max |err| "
               f"{err:.3g} (rel {rel_err(y, y_ref):.3g}), state rel err "
               f"{rel_err(h, h_ref):.3g}")
+    # the carries compose in a fixed order: every call gives the same bits
+    for Bz in (SSM_TIMED[0], 3):
+        g = torch.Generator(dev).manual_seed(300 + Bz)
+        shape = (Bz,) + SSM_TIMED[1:3]
+        a = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + 2)
+        bx = torch.randn(shape, generator=g, device=dev)
+        Bm, Cm = (torch.randn((Bz, SSM_TIMED[1], SSM_TIMED[3]), generator=g,
+                              device=dev) for _ in range(2))
+        h0 = torch.randn((Bz, SSM_TIMED[2], SSM_TIMED[3]), generator=g,
+                         device=dev)
+        y0, h_last0 = ssm_kernel.ssm_scan_btd(a, bx, Bm, Cm, h0)
+        for _ in range(SSM_REPEATS):
+            y, h = ssm_kernel.ssm_scan_btd(a, bx, Bm, Cm, h0)
+            assert torch.equal(y, y0) and torch.equal(h, h_last0), \
+                f"ssm_scan_btd at Bz={Bz} differs from call to call"
+        print(f"check ssm_scan_btd (Bz,T,di,N)={shape + SSM_TIMED[3:]} "
+              f"fp32: {SSM_REPEATS + 1} calls bit-identical")
     return worst
 
 
@@ -1050,6 +1131,28 @@ def time_flash(dev):
           f"{HYMBA_WINDOW}: kernel median {hy_ms * 1e3:.1f} us on the card "
           f"| bound {hy_bound * 1e3:.2f} us; kernel at "
           f"{hy_bound / hy_ms:.2%} of bound")
+    # the fp32 kernel (off the models' path) at qwen3's shape, its bound at
+    # the fp32 rate, SDPA on the same fp32 inputs
+    B, S, Hq, Hkv, hd = FLASH_TIMED
+    f32 = [[x.float() for x in st] for st in sets[:4]]
+    f32_ms = kernel_median_ms(
+        lambda i: fa_ops.flash_attention(*f32[i % 4], causal=True), 101,
+        "flash_attention_f32_kernel")
+    f32_bhsd = [[x.transpose(1, 2).contiguous() for x in st] for st in f32]
+    library(f32_bhsd[0])
+    torch.cuda.synchronize()
+    lib32 = device_us(lambda i: library(f32_bhsd[i % 4]), 101)
+    lib32_ms = sum(sum(v) for v in lib32.values()) / 101 / 1e3
+    bytes32, ops32 = flash_bound(B, S, Hq, Hkv, hd, itemsize=4,
+                                 rate=FP32_OPS_PER_S)
+    b32 = max(bytes32, ops32)
+    print(f"time flash_attention_bhsd {FLASH_TIMED} fp32 causal: "
+          f"flash_attention_f32_kernel median {f32_ms * 1e3:.1f} us on the "
+          f"card | SDPA fp32 {lib32_ms * 1e3:.1f} us "
+          f"({', '.join(k[:40] for k in lib32)}) | bound {b32 * 1e3:.2f} us "
+          f"by {'bytes' if bytes32 >= ops32 else 'operations'} (bytes "
+          f"{bytes32 * 1e3:.2f} us, operations at the fp32 rate "
+          f"{ops32 * 1e3:.2f} us); kernel at {b32 / f32_ms:.2%} of bound")
     return k_ms, p_ms, b_ms, b_by, lib_ms
 
 
@@ -1097,9 +1200,15 @@ def time_recurrent(dev, name, shape):
     k_ms = kernel_median_ms(lambda i: run(*sets[i % n_sets]), 101, tag)
     b_ms = max(bytes_ms, ops_ms)
     b_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    # every device activity of a call (the scan clears its look-back flags
+    # with a memset before a sequence's launch)
+    acts = device_us(lambda i: run(*sets[i % n_sets]), 21, host=False)
+    per_call = ", ".join(f"{k[:32]} {float(np.median(v)):.2f} us x {len(v)}"
+                         for k, v in acts.items())
     print(f"time {name} {shape}: kernel median {k_ms * 1e3:.1f} us on the "
           f"card ({launch_ms * 1e3:.1f} us per call back to back, host "
-          f"launch included) | plain {p_ms * 1e3:.1f} us | library: none | "
+          f"launch included; 21 calls' device activities: {per_call}) | "
+          f"plain {p_ms * 1e3:.1f} us | library: none | "
           f"bound {b_ms * 1e3:.2f} us by {b_by} (bytes {bytes_ms * 1e3:.2f} "
           f"us, operations {ops_ms * 1e3:.2f} us); kernel at "
           f"{b_ms / k_ms:.2%} of bound")

@@ -78,10 +78,16 @@ SOURCES = {
     "ssm_scan": (
         (),
         {
-            # (a, bx, B, C, h0, y, h_last, bf16, Bz, T, di, N,
-            #  a/bx/B/C strides of (b, t) x 4)
-            "ssm_scan_fwd": (_P,) * 7 + (_I,) * 5 + (_L,) * 8,
+            # (a, bx, B, C, h0, y, h_last, workspace, its bytes, bf16,
+            #  Bz, T, di, N, a/bx/B/C strides of (b, t) x 4)
+            "ssm_scan_fwd": (_P,) * 8 + (_L,) + (_I,) * 5 + (_L,) * 8,
         }),
+}
+# C entry points that launch nothing and take no stream: {name: (source,
+# argtypes, return type)}
+QUERIES = {
+    # (Bz, T, di, N) -> bytes of ssm_scan_fwd's workspace, -1 out of range
+    "ssm_scan_workspace_bytes": ("ssm_scan", (_I,) * 4, _L),
 }
 _OWNER = {fn: src for src, (_, sigs) in SOURCES.items() for fn in sigs}
 
@@ -168,6 +174,11 @@ def library(name: str) -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes) + [_P]
                 f.restype = ctypes.c_int
+            for fn, (src, argtypes, restype) in QUERIES.items():
+                if src == name:
+                    f = getattr(lib, fn)
+                    f.argtypes = list(argtypes)
+                    f.restype = restype
             _libs[name] = lib
     return lib
 
@@ -181,6 +192,12 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def query(name: str, *args) -> int:
+    """The value of C entry point `name` of QUERIES, which launches
+    nothing."""
+    return getattr(library(QUERIES[name][0]), name)(*args)
 
 
 def ptr(t) -> int | None:

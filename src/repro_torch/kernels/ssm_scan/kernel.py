@@ -3,7 +3,12 @@
 
 CPU tensors get the plain PyTorch version (`ref.ssm_scan_reference`);
 CUDA tensors launch the kernel or raise: there is no fallback.
-``ssm_scan_btd.launches`` counts the launches.
+``ssm_scan_btd.launches`` counts the calls that launch it.  A call with
+T <= DECODE_T launches the decode kernel; a longer one clears the
+look-back's flags in a workspace the C source sizes (one
+cudaMemsetAsync) and launches the chunked kernel, one block per CHUNK
+tokens of a channel group (`ref.ssm_scan_lookback` mirrors its
+arithmetic).
 """
 from __future__ import annotations
 
@@ -14,6 +19,9 @@ from repro_torch.kernels.ssm_scan import ref as _ref
 
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_STATE = 32
+# csrc/ssm_scan.cu's kChunk, kAnchor and kDecodeT, which the CPU mirror
+# `ref.ssm_scan_lookback` is tested with
+CHUNK, ANCHOR, DECODE_T = 128, 32, 8
 
 
 def _check(a, bx, B, C, h0) -> None:
@@ -49,9 +57,8 @@ def _check(a, bx, B, C, h0) -> None:
         raise ValueError(f"h0 must be {(Bz, di, N)}, got {tuple(h0.shape)}")
     if h0.dtype != torch.float32 or not h0.is_contiguous():
         raise ValueError("h0 must be contiguous float32")
-    if not 1 <= Bz <= 65535 or T < 1 or T >= 2 ** 31 or di >= 2 ** 31:
-        raise ValueError("Bz must be in [1, 65535] (the grid's second "
-                         "axis) and T in [1, 2^31)")
+    if not (1 <= Bz < 2 ** 31 and 1 <= T < 2 ** 31 and 1 <= di < 2 ** 31):
+        raise ValueError("Bz, T and di must be in [1, 2^31)")
 
 
 def ssm_scan_btd(a, bx, B, C, h0, *, block_t: int = 256,
@@ -70,11 +77,17 @@ def ssm_scan_btd(a, bx, B, C, h0, *, block_t: int = 256,
     N = B.shape[2]
     y = torch.empty((Bz, T, di), dtype=a.dtype, device=a.device)
     h_last = torch.empty_like(h0)
+    nbytes = _cuda.query("ssm_scan_workspace_bytes", Bz, T, di, N)
+    if nbytes < 0:
+        raise ValueError(f"(Bz, T, di) = {(Bz, T, di)} needs 2^31 or more "
+                         f"blocks of the chunked kernel")
+    ws = (torch.empty(nbytes, dtype=torch.uint8, device=a.device)
+          if nbytes else None)
     strides = [s for t in (a, bx, B, C) for s in t.stride()[:2]]
     _cuda.launch("ssm_scan_fwd", a.device, a.data_ptr(), bx.data_ptr(),
                  B.data_ptr(), C.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                 h_last.data_ptr(), int(a.dtype == torch.bfloat16), Bz, T,
-                 di, N, *strides)
+                 h_last.data_ptr(), _cuda.ptr(ws), nbytes,
+                 int(a.dtype == torch.bfloat16), Bz, T, di, N, *strides)
     ssm_scan_btd.launches += 1
     return y, h_last
 

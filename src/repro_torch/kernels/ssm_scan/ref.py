@@ -4,6 +4,8 @@
 the reference's ``lax.scan`` oracle step for step.
 `ssm_scan_chunked`: an associative scan within chunks and a sequential
 carry across them, the plain path the reference picks on a CPU.
+`ssm_scan_lookback`: the CUDA kernel's decomposition, step for step, for
+the tests.
 """
 from __future__ import annotations
 
@@ -59,3 +61,47 @@ def ssm_scan_chunked(a, bx, B, C, h0, chunk: int = 256):
         ys.append(torch.einsum("btdn,btn->btd", hs, Cc[:, ci]))
         h = hs[:, -1]
     return torch.cat(ys, dim=1).to(a.dtype), h
+
+
+def ssm_scan_lookback(a, bx, B, C, h0, *, chunk: int = 128,
+                      anchor: int = 32, decode_t: int = 8):
+    """The same function as `ssm_scan_reference`, in the order the CUDA
+    kernel (``csrc/ssm_scan.cu``) computes it.  T <= `decode_t` is a
+    token loop (the decode kernel).  Else each chunk of `chunk` tokens is
+    scanned from a zero state to its pair (A, b), A the product of its
+    decays and b the state reached; every `anchor`-th chunk is an anchor,
+    and the state entering chunk k composes the pairs of the chunks after
+    the anchor below it (chunk stop = k // anchor * anchor - 1), from the
+    back, onto that anchor's inclusive state A h_in + b (h0 when
+    stop < 0); the chunk is scanned again from h_in for y."""
+    Bz, T, di = a.shape
+    if T <= decode_t:
+        return ssm_scan_reference(a, bx, B, C, h0)
+    af, bxf, Bf, Cf = (x.float() for x in (a, bx, B, C))
+    h0 = h0.float()
+
+    def scan(h, lo, hi):
+        ys = []
+        for t in range(lo, hi):
+            h = af[:, t, :, None] * h + bxf[:, t, :, None] * Bf[:, t, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+        return h, ys
+
+    bounds = [(t0, min(t0 + chunk, T)) for t0 in range(0, T, chunk)]
+    pairs, inclusive, ys = [], [], []
+    for k, (lo, hi) in enumerate(bounds):
+        b_k, _ = scan(torch.zeros_like(h0), lo, hi)
+        A_k = torch.ones_like(af[:, 0])
+        for t in range(lo, hi):
+            A_k = A_k * af[:, t]
+        pairs.append((A_k[..., None], b_k))
+        stop = k // anchor * anchor - 1
+        PA, Pb = torch.ones_like(A_k[..., None]), torch.zeros_like(h0)
+        for j in range(k - 1, stop, -1):
+            Aj, bj = pairs[j]
+            PA, Pb = PA * Aj, PA * bj + Pb
+        h_in = PA * (inclusive[stop] if stop >= 0 else h0) + Pb
+        inclusive.append(pairs[k][0] * h_in + b_k)
+        h, chunk_ys = scan(h_in, lo, hi)
+        ys += chunk_ys
+    return torch.stack(ys, dim=1).to(a.dtype), h

@@ -401,8 +401,8 @@ def test_every_source_builds_into_its_own_library(cuda):
 
 # ----------------------------------------------------------------------
 # the recurrences: WKV6 (B, T, H, hd, r/k/v dtype, w dtype, nonzero s0,
-# strided) and the selective scan (Bz, T, di, N, dtype, nonzero h0), the
-# smoke's shapes; bf16 y within atol = rtol = 2e-2 (the flash kernel's
+# strided) and the selective scan (Bz, T, di, N, dtype, nonzero h0,
+# inputs), the smoke's shapes; bf16 y within atol = rtol = 2e-2 (the flash kernel's
 # bound), fp32 y and the fp32 states within 1e-4 of the largest magnitude
 # (the kernels sum in another order than the plain versions)
 WKV6_CASES = [
@@ -420,12 +420,45 @@ WKV6_CASES = [
     (8, 1, 4, 128, torch.bfloat16, torch.float32, True, False),
     (1, 1001, 40, 64, torch.bfloat16, torch.float32, True, False),
 ]
+# the selective scan's inputs: "" contiguous, "strided" a every other
+# token and bx the first di columns of wider rows (aligned: TMA through
+# strides), "odd" a and bx one element into their storage (element
+# copies), "a1" a = 1, "a0" a in (1e-4, 1e-2) (chunk decays underflow)
 SSM_CASES = [
-    (1, 1152, 3200, 16, torch.float32, False),
-    (8, 1, 3200, 16, torch.float32, True),
-    (2, 100, 1001, 16, torch.float32, True),
-    (2, 70, 515, 8, torch.bfloat16, True),
-    (1, 37, 96, 5, torch.float32, True),
+    (1, 1152, 3200, 16, torch.float32, False, ""),
+    (8, 1, 3200, 16, torch.float32, True, ""),
+    (2, 100, 1001, 16, torch.float32, True, ""),
+    (2, 70, 515, 8, torch.bfloat16, True, ""),
+    (1, 37, 96, 5, torch.float32, True, ""),
+    # the redesign's edges: T on each side of 4 boxes of 16 tokens, T = 2
+    # and each side of the decode kernel's T <= 8, Bz = 3 at hymba's
+    # prefill, N = 1 and 32, strided and unaligned views, a = 1 and ~0
+    (2, 63, 384, 16, torch.float32, True, ""),
+    (2, 64, 384, 16, torch.bfloat16, True, ""),
+    (2, 65, 384, 16, torch.float32, True, ""),
+    (3, 2, 640, 16, torch.float32, True, ""),
+    (2, 7, 300, 16, torch.float32, True, ""),
+    (2, 8, 300, 5, torch.bfloat16, True, ""),
+    (2, 9, 300, 16, torch.float32, True, ""),
+    (3, 1152, 3200, 16, torch.float32, True, ""),
+    (2, 200, 256, 1, torch.float32, True, ""),
+    (2, 200, 256, 32, torch.float32, True, ""),
+    (2, 130, 256, 32, torch.bfloat16, True, ""),
+    (2, 150, 512, 16, torch.float32, True, "strided"),
+    (2, 150, 512, 16, torch.bfloat16, True, "odd"),
+    (1, 1152, 256, 16, torch.float32, True, "a1"),
+    (1, 1152, 256, 16, torch.float32, True, "a0"),
+    # N a multiple of 4 below its padded NP (the decode kernel's quads
+    # past a row's end hold none), at T = 1 and in a sequence
+    (8, 1, 3200, 12, torch.float32, True, ""),
+    (4, 1, 515, 24, torch.float32, True, ""),
+    (2, 5, 300, 20, torch.bfloat16, True, ""),
+    (2, 1, 256, 28, torch.float32, True, ""),
+    (2, 100, 300, 12, torch.float32, True, ""),
+    # T on each side of the 128-token chunk
+    (2, 127, 384, 16, torch.float32, True, ""),
+    (2, 128, 384, 16, torch.bfloat16, True, ""),
+    (2, 129, 384, 16, torch.float32, True, ""),
 ]
 
 
@@ -471,13 +504,35 @@ def test_wkv6_kernel_matches_plain(cuda, case):
     assert _rel(s, s_ref) <= 1e-4
 
 
+def _ssm_view(x, kind, which):
+    Bz, T, di = x.shape
+    if kind == "strided":
+        big = torch.zeros((Bz, 2 * T, di) if which == "a" else
+                          (Bz, T, di + 8), dtype=x.dtype, device=x.device)
+        view = big[:, ::2] if which == "a" else big[..., :di]
+        view.copy_(x)
+        return view
+    if kind == "odd":
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        flat[1:] = x.flatten()
+        return flat[1:].view(x.shape)
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SSM_CASES, ids=str)
 def test_ssm_scan_kernel_matches_plain(cuda, case):
-    Bz, T, di, N, dtype, h0_nz = case
-    rng = np.random.default_rng([Bz, T, di, N])
-    a = torch.sigmoid(_randn(rng, Bz, T, di) + 2).to(cuda, dtype)
-    bx = _randn(rng, Bz, T, di).to(cuda, dtype)
+    Bz, T, di, N, dtype, h0_nz, kind = case
+    rng = np.random.default_rng([Bz, T, di, N] + ([len(kind)] if kind
+                                                   else []))
+    a = torch.sigmoid(_randn(rng, Bz, T, di) + 2)
+    if kind == "a1":
+        a = torch.ones_like(a)
+    elif kind == "a0":
+        a = torch.from_numpy(rng.uniform(1e-4, 1e-2, (Bz, T, di)).astype(
+            np.float32))
+    a = _ssm_view(a.to(cuda, dtype), kind, "a")
+    bx = _ssm_view(_randn(rng, Bz, T, di).to(cuda, dtype), kind, "bx")
     Bm, Cm = (_randn(rng, Bz, T, N).to(cuda, dtype) for _ in range(2))
     h0 = (_randn(rng, Bz, di, N) * (1.0 if h0_nz else 0.0)).to(cuda)
     before = ssm_kernel.ssm_scan_btd.launches
@@ -488,6 +543,24 @@ def test_ssm_scan_kernel_matches_plain(cuda, case):
     y_ref, h_ref = ssm_ref.ssm_scan_reference(a, bx, Bm, Cm, h0)
     _check_y(y, y_ref, dtype)
     assert _rel(h, h_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz", [1, 3])
+def test_ssm_scan_kernel_is_repeatable(cuda, Bz):
+    """At hymba's prefill shape every call gives the same bits: the
+    chunks compose their carries in a fixed order, whichever block runs
+    first."""
+    T, di, N = 1152, 3200, 16
+    rng = np.random.default_rng([Bz, T, di, N, 7])
+    a = torch.sigmoid(_randn(rng, Bz, T, di) + 2).to(cuda)
+    bx = _randn(rng, Bz, T, di).to(cuda)
+    Bm, Cm = (_randn(rng, Bz, T, N).to(cuda) for _ in range(2))
+    h0 = _randn(rng, Bz, di, N).to(cuda)
+    y0, h0_last = ssm_kernel.ssm_scan_btd(a, bx, Bm, Cm, h0)
+    for _ in range(10):
+        y, h = ssm_kernel.ssm_scan_btd(a, bx, Bm, Cm, h0)
+        assert torch.equal(y, y0) and torch.equal(h, h0_last)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's selective scan (plain versions and dispatch) held against
 the JAX package on the CPU: `ssm_scan_reference` and `ssm_scan_chunked`
 against JAX's oracles and against its Pallas kernel run in interpret
-mode, in fp32 (what hymba feeds it) and in bf16.
+mode, in fp32 (what hymba feeds it) and in bf16; `ssm_scan_lookback`, the
+CUDA kernel's chunk decomposition, against JAX's oracle at the kernel's
+edges of T.
 
 Tolerances: atol = rtol = 3e-2 for bf16 y and 1e-4 for fp32 y and for
 the fp32 states, the JAX package's own bounds for its kernel against its
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.ssm_scan import ssm_scan_chunked as jax_ssm_scan_chunked
@@ -23,6 +26,7 @@ from repro_torch.kernels.ssm_scan import (
     ssm_scan, ssm_scan_chunked, ssm_scan_reference,
 )
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_lookback
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -113,3 +117,49 @@ def test_dispatch_and_cpu_wrapper():
     _close(y, ssm_scan_reference(a, bx, B, C, h0)[0], 0)
     with pytest.raises(ValueError, match="unknown ssm_scan impl"):
         ssm_scan(a, bx, B, C, h0, impl="scan")
+
+
+# the kernel's edges: T = 2, the decode threshold and each side of it, a
+# chunk and each side of it, several chunks composed onto an anchor every
+# `anchor` chunks (1: every chunk's inclusive state; ANCHOR: the kernel's,
+# all from h0 at these T); a = 1 (decays of 1 carried through the
+# composition) and a near 0 (a chunk's decay product underflows to 0)
+CHUNK, ANCHOR, DECODE_T = (ssm_kernel.CHUNK, ssm_kernel.ANCHOR,
+                           ssm_kernel.DECODE_T)
+LOOKBACK_CASES = [
+    (2, 1, ""), (DECODE_T - 1, 1, ""), (DECODE_T, 1, ""),
+    (DECODE_T + 1, 1, ""), (CHUNK - 1, 1, ""), (CHUNK, 1, ""),
+    (CHUNK + 1, 1, ""), (CHUNK + 1, 2, ""), (4 * CHUNK + 5, 1, ""),
+    (4 * CHUNK + 5, 4, ""), (4 * CHUNK + 5, 3, "a1"),
+    (4 * CHUNK + 5, 3, "a0"), (4 * CHUNK + 5, ANCHOR, ""),
+]
+LOOKBACK_T = max(T for T, _, _ in LOOKBACK_CASES)
+# JAX's oracle, compiled once for every case: each case's inputs are
+# padded to LOOKBACK_T with a = 1, bx = 0, which carries the state at T
+# unchanged to the end
+_JAX_REFERENCE = jax.jit(jax_ssm_scan_reference)
+
+
+@pytest.mark.parametrize("T,anchor,kind", LOOKBACK_CASES, ids=str)
+def test_kernel_decomposition_matches_jax(T, anchor, kind):
+    Bz, di, N = 2, 16, 8
+    rng = np.random.default_rng([T, anchor, len(kind)])
+    a = rng.uniform(0.45, 0.95, (Bz, T, di))
+    if kind == "a1":
+        a = np.ones_like(a)
+    elif kind == "a0":
+        a = rng.uniform(1e-4, 1e-2, (Bz, T, di))
+    bx = rng.standard_normal((Bz, T, di))
+    B, C = rng.standard_normal((2, Bz, T, N))
+    h0 = rng.standard_normal((Bz, di, N)).astype(np.float32)
+    pad = ((0, 0), (0, LOOKBACK_T - T), (0, 0))
+    jy, jh = _JAX_REFERENCE(
+        *(jnp.asarray(np.pad(x, pad, constant_values=v), jnp.float32)
+          for x, v in ((a, 1.0), (bx, 0.0), (B, 0.0), (C, 0.0))),
+        jnp.asarray(h0))
+    ty, th = ssm_scan_lookback(
+        *(torch.from_numpy(x.astype(np.float32)) for x in (a, bx, B, C)),
+        torch.from_numpy(h0), chunk=CHUNK, anchor=anchor,
+        decode_t=DECODE_T)
+    _close(ty, np.asarray(jy)[:, :T], TOL["float32"])
+    _close(th, jh, TOL["float32"])
