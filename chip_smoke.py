@@ -93,6 +93,18 @@ P_FULL, N_FULL, N_RAGGED = 10, 109_634, 4_097
 ROUNDS = 3
 MODES = ("float", "int", "dp")
 
+# the fused kernels on the card vs their plain versions and kernel-order
+# models: (P, N, dead rows, storage offset of the rows).  The main path's
+# shapes, P = 1, N = 2, 3 and 5, one column past a block's span of 128
+# columns, N % 4 == 0 and != 0, and rows one element into their
+# storage; a first dead row holds inf, a second NaN
+AGG_CASES = [(P_FULL, N_FULL, (), 0), (P_FULL, N_FULL, (0, 4), 0),
+             (P_FULL, N_RAGGED, (), 0), (P_FULL, N_RAGGED, (0, 4), 0),
+             (1, 1, (), 0), (1, 129, (0,), 0), (2, 2, (), 0),
+             (3, 3, (1,), 0), (5, 5, (0, 2), 0), (10, 129, (), 0),
+             (16, 4096, (3, 9), 0), (16, 4097, (), 0),
+             (10, 4096, (), 1), (7, 4099, (2, 5), 1)]
+AGG_REPEATS = 21                          # calls held bit-identical
 # flash attention on the card vs its plain version:
 # (B, S, Hq, Hkv, hd, dtype, causal, window, layout); layout "" gives q,
 # k, v their own (B, S, H, hd) tensors, "qkv" slices them from one fused
@@ -246,23 +258,31 @@ LM_KERNEL_SOURCES = {
 
 
 def op_counts(kind, P, N, alive_rows):
-    """Operations per class the kernel's function needs for these inputs
-    (only surviving pairs exchange pads).  One pad word, mask_bits, is
-    key ^ (column * golden) then mix32: 7 shifts and logic ops and 2
-    multiplies per (pair, column), and 1 multiply per column for the
-    counter, which no pair changes.  The float pad adds a shift, a
-    conversion, 3 float ops and 2 float accumulations; the int pad 2
-    wrapping adds.  DP: two words per (row, column) plus 2 shifts, an
-    add, 2 conversions, log / sqrt / cos and 11 float ops."""
+    """The fewest operations per class the kernel's function needs for
+    these inputs (only surviving pairs exchange pads).  A pad word is
+    mask_bits through the split hash: mix32's first xor-shift distributes
+    over xor, so the pair's half is computed once per launch and the
+    counter's half, c ^ (c >> 16) with c = column x golden, once per
+    column (1 multiply, 2 logic/shift ops); each (pair, column) then
+    costs 5 logic/shift ops and 2 multiplies.  The float pad adds a shift
+    and an integer accumulate per pair and one conversion per alive row
+    (the net pad is summed in int32), then per alive row a scale, the
+    share, the sum and the 3-op blend, and one division per column.  The
+    int kernel's output needs no pad word: in Z_2^32 each alive pair's
+    word enters the survivors' sum once added and once subtracted, so the
+    function is the survivors' encoded sum, per alive row a scale, a
+    clamp (2), one conversion and an add.  DP: two words per (row, column) sharing the counter's
+    half, plus 2 shifts, an add, 2 conversions, log / sqrt / cos and 11
+    float ops."""
     K = alive_rows * (alive_rows - 1) // 2
     A = alive_rows
     if kind == "masked_rolling_update":
-        return dict(alu=N * K * 8, imad=N * (2 * K + 1), iadd=0,
-                    fp=N * (5 * K + 6 * A + 1), cvt=N * K, sfu=0)
-    if kind == "masked_field_wsum":   # encode: scale, clamp (2), 2 cvt
-        return dict(alu=N * (7 * K + 2 * P), imad=N * (2 * K + 1),
-                    iadd=N * (2 * K + A), fp=N * P, cvt=N * 2 * P, sfu=0)
-    return dict(alu=N * A * 16, imad=N * (4 * A + 1), iadd=N * A,
+        return dict(alu=N * (6 * K + 2), imad=N * (2 * K + 1), iadd=N * K,
+                    fp=N * (6 * A + 1), cvt=N * A, sfu=0)
+    if kind == "masked_field_wsum":
+        return dict(alu=N * 2 * A, imad=0, iadd=N * A, fp=N * A, cvt=N * A,
+                    sfu=0)
+    return dict(alu=N * (A * 12 + 2), imad=N * (4 * A + 1), iadd=N * A,
                 fp=N * A * 11, cvt=N * A * 2, sfu=N * A * 3)
 
 
@@ -430,6 +450,8 @@ def secure_agg_kernels(dev):
             run=lambda u, m: agg_kernel.masked_rolling_update_flat(
                 u, 0xC0FFEE, 0.7, m),
             plain=lambda u, m: agg_ref.masked_rolling_update_reference(
+                u, 0xC0FFEE, 0.7, m),
+            model=lambda u, m: agg_ref.masked_rolling_update_kernel_order(
                 u, 0xC0FFEE, 0.7, m)),
         "masked_field_wsum": dict(
             wrapper=agg_kernel.masked_field_wsum_flat,
@@ -438,6 +460,8 @@ def secure_agg_kernels(dev):
             run=lambda u, m: agg_kernel.masked_field_wsum_flat(
                 u, 0xC0FFEE, m),
             plain=lambda u, m: agg_ref.masked_field_wsum_reference(
+                u, 0xC0FFEE, m),
+            model=lambda u, m: agg_ref.masked_field_wsum_kernel_order(
                 u, 0xC0FFEE, m)),
         "clip_noise": dict(
             wrapper=dp_kernel.clip_noise_flat,
@@ -450,37 +474,68 @@ def secure_agg_kernels(dev):
     }
 
 
+def agg_case(rng, dev, P, N, dead, offset):
+    """(P, N) f32 rows from `rng` and their (P,) mask (None: all alive);
+    the first dead row holds inf, the second NaN; the rows start `offset`
+    elements into their storage."""
+    u = torch.from_numpy(rng.standard_normal((P, N)).astype(np.float32))
+    m = None
+    if dead:
+        mask = np.ones(P, np.float32)
+        mask[list(dead)] = 0.0
+        u[dead[0]] = float("inf")
+        if len(dead) > 1:
+            u[dead[1]] = float("nan")
+        m = torch.from_numpy(mask).to(dev)
+    return at_offset(u.to(dev), offset), m
+
+
 def check_secure_agg(kernels, dev):
+    """The three kernels against their plain versions on AGG_CASES (the
+    DP kernel on the main path's shapes): the Z_2^32 share-sum equal to
+    the plain version and to the kernel-order model; the float round
+    equal bit for bit to the kernel-order model and within atol = P *
+    1e-6 of the plain version; dead rows bit-untouched.  Then
+    AGG_REPEATS calls of each masked kernel at the main path's shape,
+    held bit-identical."""
     rng = np.random.default_rng(0)
     for name, k in kernels.items():
         k["max_abs_err"] = 0.0
-        for N in (N_FULL, N_RAGGED):
-            for dead in ((), (0, 4)):
-                u = torch.from_numpy(rng.standard_normal(
-                    (P_FULL, N)).astype(np.float32)).to(dev)
-                m = None
-                if dead:
-                    mask = np.ones(P_FULL, np.float32)
-                    mask[list(dead)] = 0.0
-                    u[dead[0]] = float("inf")
-                    u[dead[1]] = float("nan")
-                    m = torch.from_numpy(mask).to(dev)
-                got, want = k["run"](u, m), k["plain"](u, m)
-                torch.cuda.synchronize()
-                if name == "masked_field_wsum":
-                    assert torch.equal(got, want), (name, N, dead)
-                    continue
-                tol = (dict(atol=P_FULL * 1e-6, rtol=0)
-                       if name == "masked_rolling_update"
-                       else dict(atol=1e-6, rtol=1e-5))
-                torch.testing.assert_close(got, want, equal_nan=True, **tol)
-                alive = [p for p in range(P_FULL) if p not in dead]
+        cases = AGG_CASES if "model" in k else [
+            c for c in AGG_CASES if c[:2] in ((P_FULL, N_FULL),
+                                              (P_FULL, N_RAGGED))]
+        for P, N, dead, offset in cases:
+            u, m = agg_case(rng, dev, P, N, dead, offset)
+            got, want = k["run"](u, m), k["plain"](u, m)
+            torch.cuda.synchronize()
+            case = (name, P, N, dead, offset)
+            if "model" in k:
+                assert same_bits(got, k["model"](u, m)), case
+            if name == "masked_field_wsum":
+                assert torch.equal(got, want), case
+                continue
+            tol = (dict(atol=P * 1e-6, rtol=0)
+                   if name == "masked_rolling_update"
+                   else dict(atol=1e-6, rtol=1e-5))
+            torch.testing.assert_close(got, want, equal_nan=True, **tol)
+            alive = [p for p in range(P) if p not in dead]
+            if alive:
                 err = float((got[alive] - want[alive]).abs().max())
                 k["max_abs_err"] = max(k["max_abs_err"], err)
-                if dead:
-                    assert torch.equal(got[dead[0]], u[dead[0]])
-        print(f"check {name}: kernel == plain at N={N_FULL},{N_RAGGED} "
-              f"(all alive, 2 dead rows); max |err| {k['max_abs_err']:.3g}")
+            for p in dead:
+                assert same_bits(got[p], u[p]), case
+        print(f"check {name}: kernel == plain on {len(cases)} (P, N, dead "
+              f"rows, offset) cases"
+              + ("; == the kernel-order model bit for bit"
+                 if "model" in k else "")
+              + f"; max |err| {k['max_abs_err']:.3g}")
+    for name in ("masked_rolling_update", "masked_field_wsum"):
+        u, m = agg_case(rng, dev, P_FULL, N_FULL, (0, 4), 0)
+        first = kernels[name]["run"](u, m)
+        for _ in range(AGG_REPEATS - 1):
+            assert same_bits(kernels[name]["run"](u, m), first), name
+        print(f"check {name}: {AGG_REPEATS} calls at ({P_FULL}, {N_FULL}) "
+              f"bit-identical")
 
 
 def check_flash(dev):
@@ -1215,40 +1270,67 @@ def time_recurrent(dev, name, shape):
     return k_ms, p_ms, b_ms, b_by
 
 
+def one_kernel_ms(fn, iters):
+    """Median device ms of the one kernel (or copy) each fn(i) launches,
+    over `iters` calls under torch.profiler's CUDA activity."""
+    times = device_us(fn, iters, host=False)
+    assert len(times) == 1, list(times)
+    return float(np.median(next(iter(times.values())))) / 1e3
+
+
 def time_secure_agg(dev, kernels, totals):
+    """Each fused kernel at the main path's shape, all rows alive and with
+    rows 0 and 4 dead (42 of the 48 float launches on the fault path carry
+    a mask), beside its bound, its plain version and a same-bytes floor
+    (`copy_ms`): a copy of the (P, N) f32 rows for the float kernels, an
+    int32 column sum of them for the int one."""
     from repro_torch.kernels.dp import kernel as dp_kernel
     from repro_torch.kernels.dp import ref as dp_ref
     n_buf = 12        # 12 x (10, 109634) f32 = 53 MB of inputs
     bufs = [torch.randn((P_FULL, N_FULL), device=dev) for _ in range(n_buf)]
+    dead = torch.ones(P_FULL, device=dev)
+    dead[[0, 4]] = 0.0
+    sink = torch.empty((P_FULL, N_FULL), device=dev)
+    floors = {
+        "float": one_kernel_ms(lambda i: sink.copy_(bufs[i % n_buf]), 101),
+        "int": one_kernel_ms(lambda i: torch.sum(
+            bufs[i % n_buf].view(torch.int32), 0, dtype=torch.int32), 101)}
     rows = []
     for name, k in kernels.items():
         if name == "clip_noise":
             norms = {id(b): dp_ref._row_norms(b) for b in bufs}
-            run = lambda u: dp_kernel.clip_noise_flat(   # noqa: E731
-                u, norms[id(u)], 7, 0.5, 1.0)
+            run = lambda u, m=None: dp_kernel.clip_noise_flat(   # noqa: E731
+                u, norms[id(u)], 7, 0.5, 1.0, m)
             plain = lambda u: dp_ref.clip_noise_reference(   # noqa: E731
                 u, 7, 0.5, 1.0, None, norms[id(u)])
         else:
-            run = lambda u, k=k: k["run"](u, None)          # noqa: E731
+            run = lambda u, m=None, k=k: k["run"](u, m)     # noqa: E731
             plain = lambda u, k=k: k["plain"](u, None)      # noqa: E731
         launch_ms = cuda_ms(run, bufs, 300)
         p_ms = cuda_ms(plain, bufs, 12)
         k_ms = kernel_median_ms(lambda i: run(bufs[i % n_buf]), 101,
                                 f"{name}_kernel")
+        m_ms = kernel_median_ms(lambda i: run(bufs[i % n_buf], dead), 101,
+                                f"{name}_kernel")
+        copy_ms = floors["int" if name == "masked_field_wsum" else "float"]
         bytes_ms, ops_ms = bound(name, P_FULL, N_FULL, P_FULL)
         b_ms = max(bytes_ms, ops_ms)
         b_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        mb_ms = max(bound(name, P_FULL, N_FULL, P_FULL - 2))
         print(f"time {name}: kernel median {k_ms * 1e3:.2f} us on the card "
               f"({launch_ms * 1e3:.2f} us per call back to back, host "
               f"launch included) | plain {p_ms * 1e3:.1f} us | bound "
               f"{b_ms * 1e3:.2f} us by {b_by} (bytes {bytes_ms * 1e3:.2f} "
               f"us, operations {ops_ms * 1e3:.2f} us); kernel at "
-              f"{b_ms / k_ms:.1%} of bound")
+              f"{b_ms / k_ms:.1%} of bound | 2 dead rows {m_ms * 1e3:.2f} us "
+              f"(bound {mb_ms * 1e3:.2f} us, {mb_ms / m_ms:.1%}) | "
+              f"same-bytes floor {copy_ms * 1e3:.2f} us")
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"], "launches": totals[name],
                      "max_abs_err": k["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None, "masked_ms": m_ms,
+                     "copy_ms": copy_ms})
     return rows
 
 

@@ -59,6 +59,7 @@
 // port's first kernel, kept for fp32: 256 threads per 64-row q tile, four
 // threads per q row, fp32 FMAs fed from shared memory, so shared-memory
 // bandwidth bounds it.
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -66,6 +67,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "smem_allowance.cuh"
 
 namespace {
 
@@ -211,8 +214,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<HD>();
   auto kernel = flash_attention_f32_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)hq,
                   (unsigned)b);
@@ -760,8 +763,8 @@ int launch_bf16_v(const void* q, const void* k, const void* v, void* o,
                   float scale, cudaStream_t stream) {
   constexpr size_t smem = bf16_smem_bytes<HD>();
   auto kernel = flash_attention_bf16_kernel<HD, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks =
       (int64_t)((sq + kWGs * kM - 1) / (kWGs * kM)) * hq * b;

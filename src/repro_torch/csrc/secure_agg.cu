@@ -20,41 +20,72 @@
 // (the explicit-dataflow oracle the fused round was built against; see
 // the section "Legacy two-stage round" below for their notes).
 //
-// Design.  One thread owns one column g of the (P, N) row-major rows, and
-// holds the P <= 16 values of that column in registers (P is a template
-// parameter, so every per-row array is unrolled into registers).  The PRG
-// counter is the global column index g, so no result depends on the block
-// size.  The column-independent part of each stream's hash (two of the
-// three mix32 rounds of mask_bits) is computed once per block into shared
-// memory; each (pair or row, column) then costs one mix32.
+// Design of the two masked kernels (the fused MPC round in both domains).
+// The (P, N) rows are row-major, P <= 16 a template parameter, so every
+// per-row array is unrolled into registers.  The PRG counter is the
+// global column index, so no block size or column split changes a bit.
+//   - One thread owns one column, kAggThreads threads a block, so every
+//     load and store of a warp is one coalesced 128-byte row segment,
+//     whatever N and the operands' alignment (the main path's N =
+//     109,634 is not a multiple of 4, so 16-byte accesses would not apply
+//     to it).  At the main path's shape this is the fastest split
+//     measured: 26 warps an SM hide the latency better than 2, 4 or 8
+//     columns' independent work in fewer warps.
+//   - A thread issues its P loads first, predicated on its column lying
+//     inside N, and only then leaves if it does not: behind an early exit
+//     ptxas spread the loads among the hash, and both kernels ran slower
+//     (PERF.md).  No pad depends on the loads, so the pads are hashed
+//     while they are in flight.
+//   - The hash is split.  mix32's first step distributes over xor, so
+//     mask_bits(seed, k, col) = mix32_tail(key'_k ^ c'), key' = key ^ (key
+//     >> 16) once per pair (on the host, passed by value in PairKeys: each
+//     key is a constant-bank operand), c' = c ^ (c >> 16), c = col x
+//     golden, once per column.  A pad word is then 5 logic/shift ops and
+//     2 multiplies.
+//   - The participation bits come from one warp ballot (lane p reads
+//     mask[p]); a pair is gated by the and of its two rows' bit masks,
+//     which folds into the last xor of the hash (one LOP3), so no branch
+//     splits the unrolled pair loop.
+//   - Float pads accumulate in int32: a mask value is exactly (bits >> 8 -
+//     2^23) 2^-23, so row i's net pad is (float)(sum of +-(bits >> 8) -
+//     2^23 d_i) 2^-23, with d_i its alive pairs' sign sum (the int32 sum
+//     stays below 2^28).  One conversion per row, and the net rounds once
+//     from the exact sum, as the plain version's float64 product does.
+//     Survivor shares are summed in row order 0..P-1, divided by max(count,
+//     1) (IEEE division) and blended; kernels/secure_agg/ref.py's
+//     masked_rolling_update_kernel_order is this arithmetic in PyTorch.
+//   - The int kernel encodes each row once (a clamp to [-2^31, 2^31 - 128],
+//     then one round-to-nearest-even conversion: equal to rintf, clamp and
+//     truncation) and adds the pad words with wrapping int32 adds.
 //
-// Bound on an H100 SXM.  At the main path's shape (P = 10, N = 109,634):
-//   bytes   the float and DP kernels read and write (P, N) f32 once:
-//           8.8 MB, 2.62 us at 3.35 TB/s; the int kernel reads (P, N) and
-//           writes (N,) u32: 4.8 MB, 1.44 us.
-//   integer a pad word is key ^ (col * kGolden) and one mix32: 7 shifts
-//           and logic ops on the INT32 pipe and 2 multiplies on the FMA
-//           pipe per (pair, column); the counter multiply col * kGolden
-//           is one per column, shared by every pair.  The float pad adds
-//           a shift, the int pad two wrapping adds (either pipe), the
-//           int encode a clamp (2) per row.  The INT32 pipe retires 64
-//           per clock per SM, 132 SMs x 1.98 GHz = 16.7e12 per second:
-//           45 pairs x 8 x N = 2.36 us (float), (45 x 7 + 2 x 10) x N =
-//           2.20 us (int), 10 rows x 16 x N = 1.05 us (DP, two words per
-//           row).  The FMA pipe's multiplies take 0.6 us or less.
-//   So the int kernel is bound by its shifts and logic, the float and
-//   DP kernels by bytes, the float one with 90% of that time in ALU
-//   work (chip_smoke.py:op_counts counts these per class for the run's
-//   inputs and times each kernel against them).
-// The simple design keeps every byte read once and written once and the
-// pad words in registers; it does nothing yet to overlap the loads with
-// the hashing or to raise the integer rate (several columns per thread,
-// vectorised loads): that is later work.
+// Bound on an H100 SXM at the main path's shape (P = 10, N = 109,634):
+//   bytes   the float kernel reads and writes (P, N) f32 once: 8.8 MB,
+//           2.62 us at 3.35 TB/s; the int kernel reads (P, N) and writes
+//           (N,) u32: 4.8 MB, 1.44 us.
+//   integer the float kernel's 45 pairs x (5 logic/shift + 2
+//           multiplies), plus a shift per pair for the float pad and 2
+//           logic ops per column for the counter.  The INT32 pipe retires
+//           64 per clock per SM, 132 SMs x 1.98 GHz = 16.7e12 per second:
+//           (45 x 6 + 2) x N = 1.78 us.  The multiplies and adds share the
+//           other pipe (0.6 us or less).  The int kernel's output needs no
+//           pad at all (in Z_2^32 the survivors' pads cancel exactly), only
+//           each alive row's scale, clamp, conversion and add: 0.26 us at
+//           the conversion rate.
+//   So both kernels are bound by bytes (chip_smoke.py:op_counts counts the
+//   operations per class for a run's inputs).  With all columns in a
+//   single wave, the float kernel's time is at best the larger of its
+//   byte and integer times, when the loads, the hashing and the stores
+//   overlap.
+//
+// clip_noise_kernel keeps the first design: one thread owns one column,
+// the column-independent part of each stream's hash (stream_key) is
+// computed once per block into shared memory, and each (row, column) then
+// costs two mix32.  Bound: bytes, (P, N) f32 read and written, 2.62 us.
 //
 // Rounding.  Built with -fmad=false, so no multiply-add is contracted and
 // every float expression rounds where the plain PyTorch version rounds.
-// The encode uses rintf (half to even, as jnp.round and torch.round); the
-// DP noise uses the accurate logf / sqrtf / cosf, never the __ intrinsics.
+// The encode rounds half to even (as jnp.round and torch.round); the DP
+// noise uses the accurate logf / sqrtf / cosf, never the __ intrinsics.
 #include <cstdint>
 #include <initializer_list>
 #include <cuda_bf16.h>
@@ -70,12 +101,11 @@ constexpr uint32_t kPairMul = 0x85EBCA6Bu;  // decorrelates the streams
 constexpr uint32_t kDpTagA = 0xD9A11E5u;    // DP Box-Muller stream tags
 constexpr uint32_t kDpTagB = 0x5E11A9Du;
 constexpr float kU24 = 5.9604644775390625e-08f;  // 2^-24
-constexpr float kMaskScale = 1.0f;
 constexpr float kTwoPi = (float)(2.0 * 3.14159265358979323846);
 constexpr int kMaxRows = 16;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
   x *= kMulA;
   x ^= x >> 15;
@@ -95,11 +125,6 @@ __device__ __forceinline__ uint32_t mask_bits(uint32_t key, uint32_t col) {
   return mix32(key ^ (col * kGolden));
 }
 
-__device__ __forceinline__ float mask_value(uint32_t bits) {
-  const float u = (float)(bits >> 8) * kU24;
-  return kMaskScale * (2.0f * u - 1.0f);
-}
-
 // Participation bits: bit p set iff row p survives (mask == nullptr: all).
 template <int P>
 __device__ __forceinline__ uint32_t alive_bits(const float* mask) {
@@ -110,101 +135,159 @@ __device__ __forceinline__ uint32_t alive_bits(const float* mask) {
   return bits;
 }
 
+// ---------------------------------------------------------------------
+// The fused MPC round (the design notes at the top of this file).
+
+constexpr int kAggThreads = 128;   // threads of a masked kernel's block
+constexpr int kMaxPairs = kMaxRows * (kMaxRows - 1) / 2;
+constexpr float kU23 = 1.1920928955078125e-07f;  // 2^-23
+
+// A launch's pair keys in split form, key ^ (key >> 16) with key =
+// stream_key(seed, k), passed by value: each is a constant-bank operand.
+struct PairKeys {
+  uint32_t k[kMaxPairs];
+};
+
+PairKeys split_pair_keys(uint32_t seed, int p) {
+  PairKeys keys{};
+  const uint32_t h = mix32(seed ^ kGolden);
+  for (int k = 0; k < p * (p - 1) / 2; ++k) {
+    const uint32_t key = mix32(h ^ ((uint32_t)k * kPairMul));
+    keys.k[k] = key ^ (key >> 16);
+  }
+  return keys;
+}
+
+// The counter's half of mix32's first xor-shift: c ^ (c >> 16), c = col
+// x golden.
+__device__ __forceinline__ uint32_t split_counter(uint32_t col) {
+  const uint32_t c = col * kGolden;
+  return c ^ (c >> 16);
+}
+
+// mask_bits(seed, k, col) from the split key and counter (mix32 after its
+// first xor-shift), and-ed with the pair's gate `on` (all ones or zero).
+__device__ __forceinline__ uint32_t pad_word(uint32_t key, uint32_t c,
+                                             uint32_t on) {
+  uint32_t x = (key ^ c) * kMulA;
+  x ^= x >> 15;
+  x *= kMulB;
+  return (x ^ (x >> 16)) & on;
+}
+
+// Participation bits from one load per warp: lane p < P reads mask[p]
+// (mask == nullptr: all).  Every lane of the warp must call it.
 template <int P>
-__device__ __forceinline__ void load_pair_keys(uint32_t* keys,
-                                               uint32_t seed) {
-  constexpr int kPairs = P * (P - 1) / 2;
-  for (int k = threadIdx.x; k < kPairs; k += blockDim.x)
-    keys[k] = stream_key(seed, (uint32_t)k);
-  __syncthreads();
+__device__ __forceinline__ uint32_t alive_ballot(const float* mask) {
+  const int lane = threadIdx.x & 31;
+  bool on = lane < P;
+  if (on && mask != nullptr) on = mask[lane] > 0.0f;
+  return __ballot_sync(0xffffffffu, on);
+}
+
+// All ones iff row p survives.
+__device__ __forceinline__ uint32_t row_on(uint32_t alive, int p) {
+  return 0u - ((alive >> p) & 1u);
+}
+
+// The pair index of (i, j), i < j, in lexicographic order.
+template <int P>
+__device__ __forceinline__ constexpr int pair_index(int i, int j) {
+  return i * (2 * P - i - 1) / 2 + (j - i - 1);
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAggThreads)
 masked_rolling_update_kernel(const float* __restrict__ u,
                              float* __restrict__ out,
                              const float* __restrict__ mask, int64_t n,
-                             uint32_t seed, float alpha) {
-  __shared__ uint32_t keys[P > 1 ? P * (P - 1) / 2 : 1];
-  load_pair_keys<P>(keys, seed);
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const uint32_t alive = alive_bits<P>(mask);
-  const uint32_t col = (uint32_t)g;
-  float x[P], net[P];
+                             const PairKeys keys, float alpha) {
+  const uint32_t alive = alive_ballot<P>(mask);
+  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
+  float x[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) x[p] = g < n ? u[p * n + g] : 0.0f;
+  if (g >= n) return;  // after the loads (the notes at the top)
+  // row p's net pad is sum_k sign (bits_k >> 8) - 2^23 d_p, d_p the sign
+  // sum of its alive pairs (+1 as i, -1 as j): the offset starts the sum
+  int net[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    x[p] = u[p * n + g];
-    net[p] = 0.0f;
+    const int above = __popc(alive >> (p + 1));
+    const int below = __popc(alive & ((1u << p) - 1u));
+    net[p] = ((alive >> p) & 1u) ? (below - above) * (1 << 23) : 0;
   }
-  // pairs (i, j), i < j, in lexicographic order: row i adds the pad,
-  // row j subtracts it, each accumulating in pair order
+  const float denom = fmaxf((float)__popc(alive), 1.0f);
+  const uint32_t c = split_counter((uint32_t)g);
+  // pair (i, j): row i adds the pad, row j subtracts it; exact in int32
 #pragma unroll
   for (int i = 0; i < P; ++i) {
 #pragma unroll
     for (int j = i + 1; j < P; ++j) {
-      const int k = i * (2 * P - i - 1) / 2 + (j - i - 1);
-      if ((alive >> i) & (alive >> j) & 1u) {
-        const float m = mask_value(mask_bits(keys[k], col));
-        net[i] += m;
-        net[j] -= m;
-      }
+      const int b = (int)(pad_word(keys.k[pair_index<P>(i, j)], c,
+                                   row_on(alive, i) & row_on(alive, j))
+                          >> 8);
+      net[i] += b;
+      net[j] -= b;
     }
   }
-  float total = 0.0f, count = 0.0f;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    if ((alive >> p) & 1u) {
-      total += x[p] + net[p];  // the share row p publishes
-      count += 1.0f;
-    }
-  }
-  const float agg = total / fmaxf(count, 1.0f);
+  // the survivors' shares in row order; a dead row never enters
+  float total = 0.0f;
 #pragma unroll
   for (int p = 0; p < P; ++p)
-    out[p * n + g] = ((alive >> p) & 1u) ? x[p] + alpha * (agg - x[p]) : x[p];
+    if ((alive >> p) & 1u) total += x[p] + (float)net[p] * kU23;
+  const float agg = total / denom;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    out[p * n + g] =
+        ((alive >> p) & 1u) ? x[p] + alpha * (agg - x[p]) : x[p];
 }
 
-// round(x * 2^frac_bits) half to even, saturated at the int32 edge,
-// embedded two's-complement into uint32.
-__device__ __forceinline__ uint32_t encode(float x, float scale) {
-  float s = rintf(x * scale);
-  s = fminf(fmaxf(s, -2147483648.0f), 2147483520.0f);
-  return (uint32_t)(int32_t)s;
+// round(x * scale) half to even, saturated at the int32 edge, embedded
+// two's-complement into uint32: the clamp comes before one rounding
+// conversion, which equals rintf, the clamp and a truncation (no float
+// lies strictly between 2^31 - 128 and 2^31; NaN clamps to -2^31).
+__device__ __forceinline__ uint32_t encode_rn(float x, float scale) {
+  const float s = fminf(fmaxf(x * scale, -2147483648.0f), 2147483520.0f);
+  return (uint32_t)__float2int_rn(s);
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAggThreads)
 masked_field_wsum_kernel(const float* __restrict__ u,
                          uint32_t* __restrict__ out,
                          const float* __restrict__ mask, int64_t n,
-                         uint32_t seed, float scale) {
-  __shared__ uint32_t keys[P > 1 ? P * (P - 1) / 2 : 1];
-  load_pair_keys<P>(keys, seed);
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const uint32_t alive = alive_bits<P>(mask);
-  const uint32_t col = (uint32_t)g;
-  uint32_t q[P];
+                         const PairKeys keys, float scale) {
+  const uint32_t alive = alive_ballot<P>(mask);
+  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
+  float x[P];
 #pragma unroll
-  for (int p = 0; p < P; ++p) q[p] = encode(u[p * n + g], scale);
+  for (int p = 0; p < P; ++p) x[p] = g < n ? u[p * n + g] : 0.0f;
+  if (g >= n) return;  // after the loads (the notes at the top)
+  const uint32_t c = split_counter((uint32_t)g);
+  // the pads first (they need no data), the encodes after
+  uint32_t pad[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) pad[p] = 0u;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
 #pragma unroll
     for (int j = i + 1; j < P; ++j) {
-      const int k = i * (2 * P - i - 1) / 2 + (j - i - 1);
-      if ((alive >> i) & (alive >> j) & 1u) {
-        const uint32_t w = mask_bits(keys[k], col);
-        q[i] += w;  // wrapping: +w - w == 0 exactly
-        q[j] -= w;
-      }
+      const uint32_t w = pad_word(keys.k[pair_index<P>(i, j)], c,
+                                  row_on(alive, i) & row_on(alive, j));
+      pad[i] += w;  // wrapping: +w - w == 0 exactly
+      pad[j] -= w;
     }
   }
   uint32_t sum = 0;
 #pragma unroll
   for (int p = 0; p < P; ++p)
-    if ((alive >> p) & 1u) sum += q[p];
+    sum += (encode_rn(x[p], scale) + pad[p]) & row_on(alive, p);
   out[g] = sum;
+}
+
+inline unsigned agg_blocks(int64_t n) {
+  return (unsigned)((n + kAggThreads - 1) / kAggThreads);
 }
 
 template <int P>
@@ -396,11 +479,12 @@ extern "C" {
 int masked_rolling_update_f32(const void* u, void* out, const void* mask,
                               int p, int64_t n, uint32_t seed, float alpha,
                               void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || p < 1 || p > kMaxRows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const PairKeys keys = split_pair_keys(seed, p);
 #define LAUNCH(P)                                                        \
-  masked_rolling_update_kernel<P><<<blocks_for(n), kThreads, 0, s>>>(    \
-      (const float*)u, (float*)out, (const float*)mask, n, seed, alpha)
+  masked_rolling_update_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>( \
+      (const float*)u, (float*)out, (const float*)mask, n, keys, alpha)
   REPRO_DISPATCH_ROWS(p, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
@@ -409,11 +493,12 @@ int masked_rolling_update_f32(const void* u, void* out, const void* mask,
 int masked_field_wsum_f32(const void* u, void* out, const void* mask, int p,
                           int64_t n, uint32_t seed, float scale,
                           void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || p < 1 || p > kMaxRows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const PairKeys keys = split_pair_keys(seed, p);
 #define LAUNCH(P)                                                        \
-  masked_field_wsum_kernel<P><<<blocks_for(n), kThreads, 0, s>>>(        \
-      (const float*)u, (uint32_t*)out, (const float*)mask, n, seed, scale)
+  masked_field_wsum_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>(     \
+      (const float*)u, (uint32_t*)out, (const float*)mask, n, keys, scale)
   REPRO_DISPATCH_ROWS(p, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();

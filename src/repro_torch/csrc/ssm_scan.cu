@@ -83,6 +83,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "smem_allowance.cuh"
+
 namespace {
 
 constexpr int kCG = 64;                  // channels a block, one a thread
@@ -593,23 +595,6 @@ int64_t workspace_bytes(int bz, int t, int di, int n) {
   return flag_bytes + items * state_floats(np) * (int64_t)sizeof(float);
 }
 
-// the sequence kernel's shared-memory allowance, set once per device: it
-// stays set, and each cudaFuncSetAttribute call costs the host time
-template <typename T, int NP>
-cudaError_t allow_smem() {
-  static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(ssm_scan_kernel<T, NP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Chunk<T, NP>::smem_bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
 template <typename T, int NP>
 int launch(const void* a, const void* bx, const void* Bm, const void* Cm,
            const void* h0, void* y, void* h_last, void* ws, int64_t ws_bytes,
@@ -641,7 +626,9 @@ int launch(const void* a, const void* bx, const void* Bm, const void* Cm,
   const int64_t need = workspace_bytes(bz, t, di, n);
   if (need < 0) return (int)cudaErrorInvalidConfiguration;
   if (ws == nullptr || ws_bytes < need) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<T, NP>();
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      allow_smem_once(smem_set, ssm_scan_kernel<T, NP>, Ch::smem_bytes);
   if (err != cudaSuccess) return (int)err;
   // a batch stride of a single row is never used: give the maps a valid
   // one

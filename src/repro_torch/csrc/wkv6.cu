@@ -57,12 +57,15 @@
 // version.  Any T >= 1 is taken with no padding; r, k, v and w are read
 // through (b, t, h) element strides with a unit stride along hd (rows
 // that are not 16-byte aligned are copied element by element).
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "smem_allowance.cuh"
 
 namespace {
 
@@ -567,8 +570,8 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   if (t <= kTC) {                     // a decode step
     auto kernel = wkv6_kernel_columns<T, TW, HD>;
     const size_t smem = Raw<T, TW, HD, HD>::bytes + HD * sizeof(float);
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static std::atomic<uint64_t> smem_set{0};
+    err = allow_smem_once(smem_set, kernel, smem);
     if (err != cudaSuccess) return (int)err;
     if ((int64_t)b * h > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     kernel<<<(unsigned)(b * h), HD, smem, stream>>>(
@@ -578,8 +581,8 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   using Sp = Split<HD>;
   auto kernel = wkv6_kernel<T, TW, HD>;
   const size_t smem = Sp::template smem_bytes<T, TW>();
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<uint64_t> smem_set{0};
+  err = allow_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)b * h * Sp::G;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;

@@ -5,11 +5,11 @@ shared library of its own with a plain C interface and loaded with
 ``ctypes``, at the first launch of one of its kernels (never at import:
 a CPU-only machine imports every module).  A library lands in
 ``build/kernels/`` at the repository root, named by the hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Flags are per source: ``secure_agg.cu`` is built
-without FMA contraction, so its float expressions round where the plain
-PyTorch version rounds; the attention and recurrence kernels need no
-such flag.
+source, the shared ``csrc/*.cuh`` headers and its flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Flags are per source: ``secure_agg.cu`` is built without FMA
+contraction, so its float expressions round where the plain PyTorch
+version rounds; the attention and recurrence kernels need no such flag.
 
 Each C entry point returns a CUDA error code (``cudaGetLastError()``
 after its launch); `launch` raises when that is not 0.  A failed build or
@@ -111,8 +111,11 @@ def nvcc_flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()
-                            + " ".join(nvcc_flags(name)).encode()).hexdigest()
+    text = source_path(name).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources' shared headers
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(nvcc_flags(name)).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

@@ -203,3 +203,144 @@ def masked_field_wsum_reference(updates: torch.Tensor, seed: int, mask=None,
             torch.where(alive > 0.0, shares, 0).sum(dim=0)))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
+
+
+# ----------------------------------------------------------------------
+# The fused kernels' own arithmetic (csrc/secure_agg.cu), in PyTorch.
+# Nothing on the main path calls these: they are what the CPU tests hold
+# against the JAX package and what the card tests hold the kernels
+# against bit for bit.
+
+_U23 = 2.0 ** -23
+
+
+def split_pair_keys(seed, npairs: int, device=None) -> torch.Tensor:
+    """(npairs,) int64: key ^ (key >> 16) of each pair's stream key
+    mix32(mix32(seed ^ golden) ^ k * pair_mul).  mix32's first xor-shift
+    distributes over xor, so mask_bits(seed, k, col) ==
+    mix32_tail(key'_k ^ c'_col) with c' from `split_counter`."""
+    seed = masking._as_u32(int(seed) & M32, device)
+    pair = torch.arange(npairs, dtype=torch.int64, device=device)
+    h = masking._mix32(seed ^ masking.GOLDEN)
+    key = masking._mix32(h ^ masking._mul32(pair, masking.PAIR_MUL))
+    return key ^ (key >> 16)
+
+
+def split_counter(offs: torch.Tensor) -> torch.Tensor:
+    """c ^ (c >> 16), c = col * golden mod 2^32: the counter's half of
+    mix32's first xor-shift, once per column."""
+    c = masking._mul32(offs.to(torch.int64) & M32, masking.GOLDEN)
+    return c ^ (c >> 16)
+
+
+def mix32_tail(x: torch.Tensor) -> torch.Tensor:
+    """mix32 after its first xor-shift: 5 logic/shift ops, 2 multiplies."""
+    x = masking._mul32(x, masking.MUL_A)
+    x = x ^ (x >> 15)
+    x = masking._mul32(x, masking.MUL_B)
+    return x ^ (x >> 16)
+
+
+def split_mask_bits(seed, npairs: int, offs: torch.Tensor) -> torch.Tensor:
+    """(npairs, N) uint32 words (as int64) of pairs 0..npairs-1 at column
+    counters `offs` (N,) through the split hash; equal to
+    ``masking.mask_bits``."""
+    keys = split_pair_keys(seed, npairs, offs.device)
+    return mix32_tail(keys[:, None] ^ split_counter(offs)[None, :])
+
+
+def _alive_rows(mask, P: int) -> list:
+    return [bool(a) for a in (_alive(mask, P, "cpu")[:, 0] > 0.0).tolist()]
+
+
+def int_net_pads(seed, P: int, offs: torch.Tensor, mask=None):
+    """(P, N) int64: row p's net float pad in units of 2^-23, as the float
+    kernel sums it in int32.  A mask value is exactly ((bits >> 8) - 2^23)
+    2^-23, so the net is sum_k sign (bits_k >> 8) over the row's alive
+    pairs, started at -2^23 d_p (d_p: their sign sum).  Exact, so the
+    order of the pairs does not matter; |net| < 2^28."""
+    alive = _alive_rows(mask, P)
+    pairs = masking.pair_list(P)
+    words = split_mask_bits(seed, len(pairs), offs)
+    net = torch.zeros((P, offs.shape[0]), dtype=torch.int64,
+                      device=offs.device)
+    for p in range(P):
+        if alive[p]:
+            above = sum(alive[p + 1:])
+            below = sum(alive[:p])
+            net[p] = (below - above) << 23
+    for k, (i, j) in enumerate(pairs):
+        if alive[i] and alive[j]:
+            b = words[k] >> 8
+            net[i] += b
+            net[j] -= b
+    return net
+
+
+def float_net_pads(seed, P: int, offs: torch.Tensor, mask=None):
+    """(P, N) f32 net pads: the exact integer net converted once (round to
+    nearest even) and scaled by 2^-23, which is exact."""
+    return int_net_pads(seed, P, offs, mask).to(torch.float32) * _U23
+
+
+def masked_rolling_update_kernel_order(updates: torch.Tensor, seed: int,
+                                       alpha, mask=None) -> torch.Tensor:
+    """The fused float round in `masked_rolling_update_kernel`'s order:
+    net pads from `float_net_pads`, the survivors' shares summed in row
+    order 0..P-1 from 0, IEEE division by max(count, 1) (a full tensor,
+    so no backend divides by a reciprocal), and the blend u + alpha (agg
+    - u) rounded after each operation; dead rows pass through."""
+    P, N = updates.shape
+    dev = updates.device
+    alive = _alive_rows(mask, P)
+    u = updates.to(torch.float32)
+    net = float_net_pads(seed, P, torch.arange(N, device=dev), mask)
+    total = torch.zeros((N,), dtype=torch.float32, device=dev)
+    for p in range(P):
+        if alive[p]:
+            total = total + (u[p] + net[p])
+    agg = total / torch.full_like(total, float(max(sum(alive), 1)))
+    a = torch.tensor(float(alpha), dtype=torch.float32, device=dev)
+    out = u.clone()
+    for p in range(P):
+        if alive[p]:
+            out[p] = u[p] + a * (agg - u[p])
+    return out.to(updates.dtype)
+
+
+def encode_rows_clamp_first(x: torch.Tensor,
+                            frac_bits: int = field.FRAC_BITS):
+    """`field.encode_rows` in the int kernel's order: clamp x * 2^frac_bits
+    to [-2^31, 2^31 - 128], then round half to even once.  Equal to
+    round-then-clamp: no f32 lies strictly between 2^31 - 128 and 2^31.
+    A NaN clamps to -2^31 (fmaxf returns the other operand)."""
+    s = x.to(torch.float32) * float(2.0 ** frac_bits)
+    s = torch.where(torch.isnan(s), field.I32_MIN_F, s)
+    s = torch.clamp(s, field.I32_MIN_F, field.I32_MAX_F)
+    return torch.round(s).to(torch.int64) & M32
+
+
+def masked_field_wsum_kernel_order(updates: torch.Tensor, seed: int,
+                                   mask=None, *,
+                                   frac_bits: int = field.FRAC_BITS):
+    """The Z_2^32 share-sum in `masked_field_wsum_kernel`'s order: the pad
+    words of the alive pairs through the split hash, accumulated per row
+    from 0 (+w on row i, -w on row j), then each survivor's encode added
+    and the shares summed with wrapping adds -> (N,) int32 bit
+    patterns."""
+    P, N = updates.shape
+    dev = updates.device
+    alive = _alive_rows(mask, P)
+    pairs = masking.pair_list(P)
+    words = split_mask_bits(seed, len(pairs), torch.arange(N, device=dev))
+    pad = torch.zeros((P, N), dtype=torch.int64, device=dev)
+    for k, (i, j) in enumerate(pairs):
+        if alive[i] and alive[j]:
+            pad[i] = (pad[i] + words[k]) & M32
+            pad[j] = (pad[j] - words[k]) & M32
+    enc = encode_rows_clamp_first(updates, frac_bits)
+    total = torch.zeros((N,), dtype=torch.int64, device=dev)
+    for p in range(P):
+        if alive[p]:
+            total = (total + enc[p] + pad[p]) & M32
+    return field.to_int32(total)

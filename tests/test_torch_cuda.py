@@ -6,8 +6,10 @@ port is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the Z_2^32 share-sums (fused and legacy) are exact; the float
-MPC round within atol = P * 1e-6 (the plain version sums the pads exactly
-in float64 and rounds once, the kernel in float32 pair by pair); the
+MPC round equal bit for bit to its kernel-order model
+(``ref.masked_rolling_update_kernel_order``) and within atol = P * 1e-6
+of the plain version (both round the exact net pad once; they sum the
+survivors' shares in another order); the
 legacy float aggregate within atol = P * 1e-6 plus one ulp of the output
 type (2^-7 relative in bf16, 2^-10 in f16: the two sum the P shares in
 another order, and torch divides a tensor by a scalar as a multiply by
@@ -66,23 +68,86 @@ def _case(P, N, mask_kind, device, seed=0):
     return torch.from_numpy(u).to(device), mask
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 4097, 109634])
-@pytest.mark.parametrize("mask_kind", MASKS)
-@pytest.mark.parametrize("P", [2, 10, 16])
-def test_secure_agg_kernels_match_plain(cuda, P, N, mask_kind):
-    u, m = _case(P, N, mask_kind, cuda)
+def _at_offset(t, k):
+    """A contiguous copy of `t` that starts k elements into its storage."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _same_bits(a, b):
+    """Bit-for-bit equality, NaN payloads included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _check_secure_agg(u, m, P):
+    """Both fused kernels on (u, m): the share-sum equal to the plain
+    version and the kernel-order model; the float round equal bit for bit
+    to the kernel-order model, within atol = P * 1e-6 of the plain
+    version, dead rows bit-untouched."""
     before = agg_kernel.masked_field_wsum_flat.launches
     words = agg_kernel.masked_field_wsum_flat(u, 99, m)
     assert agg_kernel.masked_field_wsum_flat.launches == before + 1
     assert words.dtype == torch.int32
     assert torch.equal(words, agg_ref.masked_field_wsum_reference(u, 99, m))
+    assert torch.equal(words,
+                       agg_ref.masked_field_wsum_kernel_order(u, 99, m))
     before = agg_kernel.masked_rolling_update_flat.launches
     out = agg_kernel.masked_rolling_update_flat(u, 99, 0.7, m)
     assert agg_kernel.masked_rolling_update_flat.launches == before + 1
+    assert _same_bits(
+        out, agg_ref.masked_rolling_update_kernel_order(u, 99, 0.7, m))
     want = agg_ref.masked_rolling_update_reference(u, 99, 0.7, m)
     torch.testing.assert_close(out, want, atol=P * 1e-6, rtol=0,
                                equal_nan=True)
+    if m is not None:
+        dead = m == 0
+        assert _same_bits(out[dead], u[dead])
+
+
+# N = 2, 3, 5; 129, one column past a block's 128; N % 4 == 0 and != 0
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 5, 129, 4096, 4097, 109634])
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", [1, 2, 10, 16])
+def test_secure_agg_kernels_match_plain(cuda, P, N, mask_kind):
+    u, m = _case(P, N, mask_kind, cuda)
+    _check_secure_agg(u, m, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_secure_agg_kernels_take_offset_views(cuda, k, mask_kind):
+    """N % 4 == 0, but the rows start off a 16-byte boundary."""
+    u, m = _case(10, 4096, mask_kind, cuda)
+    _check_secure_agg(_at_offset(u, k), m, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", MASKS)
+def test_secure_agg_kernels_are_repeatable(cuda, mask_kind):
+    """21 calls at the main path's (10, 109,634) give the same bits."""
+    u, m = _case(10, 109634, mask_kind, cuda)
+    out = agg_kernel.masked_rolling_update_flat(u, 5, 0.7, m)
+    words = agg_kernel.masked_field_wsum_flat(u, 5, m)
+    for _ in range(20):
+        assert _same_bits(agg_kernel.masked_rolling_update_flat(u, 5, 0.7, m),
+                          out)
+        assert torch.equal(agg_kernel.masked_field_wsum_flat(u, 5, m), words)
+
+
+@pytest.mark.cuda
+def test_secure_agg_kernels_match_plain_many_waves(cuda):
+    """(10, 2^24 + 3): 131,073 blocks, so many waves; two dead rows."""
+    u, m = _case(10, 2 ** 24 + 3, "two_dead", cuda)
+    words = agg_kernel.masked_field_wsum_flat(u, 3, m)
+    assert torch.equal(words, agg_ref.masked_field_wsum_reference(u, 3, m))
+    out = agg_kernel.masked_rolling_update_flat(u, 3, 0.7, m)
+    torch.testing.assert_close(
+        out, agg_ref.masked_rolling_update_reference(u, 3, 0.7, m),
+        atol=10 * 1e-6, rtol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -169,14 +234,6 @@ def test_legacy_kernels_match_plain(cuda, P, N, dtype):
     assert agg_kernel.field_wsum_flat.launches == before + 1
     assert wsum.dtype == torch.int32 and wsum.shape == (N,)
     assert torch.equal(wsum, agg_ref.field_wsum_reference(words))
-
-
-def _at_offset(t, k):
-    """A contiguous copy of `t` that starts k elements into its storage."""
-    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
-    view = buf[k:].view(t.shape)
-    view.copy_(t)
-    return view
 
 
 @pytest.mark.cuda
@@ -385,6 +442,34 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
         fa_kernel.flash_attention_bhsd(*(q.half(),) * 3)
     with pytest.raises(ValueError, match="unit stride"):
         fa_kernel.flash_attention_bhsd(q, q.transpose(2, 3), q)
+
+
+@pytest.mark.cuda
+def test_smem_allowance_is_set_once_per_device(cuda):
+    """After a first call, flash (bf16 and fp32) and WKV6 (prefill and
+    decode) launch without another cudaFuncSetAttribute."""
+    rng = np.random.default_rng(7)
+
+    def calls():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _flash_inputs(1, 130, 4, 2, 64, dtype, cuda)
+            fa_ops.flash_attention(q, k, v, causal=True)
+        for T in (1, 40):
+            r, k, v = (_randn(rng, 1, T, 2, 64).to(cuda, torch.bfloat16)
+                       for _ in range(3))
+            w = torch.rand((1, T, 2, 64), device=cuda)
+            wkv_kernel.wkv6_bthd(r, k, v, w, torch.zeros((2, 64), device=cuda),
+                                 torch.zeros((1, 2, 64, 64), device=cuda))
+        torch.cuda.synchronize()
+
+    calls()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        calls()
+    names = [e.name for e in prof.events()]
+    assert any("LaunchKernel" in n for n in names), sorted(set(names))
+    assert not any("cudaFuncSetAttribute" in n for n in names)
 
 
 @pytest.mark.cuda

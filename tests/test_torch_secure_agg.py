@@ -220,6 +220,108 @@ def test_output_dtype_contract():
 
 
 # ----------------------------------------------------------------------
+# the fused kernels' own arithmetic (ref.*_kernel_order): the split hash,
+# integer pad sums, survivors summed in row order, IEEE division, a blend
+# without contraction.  The card tests hold the kernels equal to these.
+
+@pytest.mark.parametrize("seed", [0, 1, 0xDEADBEEF, 2 ** 32 - 1])
+def test_split_hash_words_bitexact(seed):
+    """mix32_tail(key' ^ c') == mask_bits for 120 pairs, counters 0..299,
+    random counters and 2^32 - 1."""
+    rng = np.random.default_rng(seed & 0xFFFF)
+    offs = np.concatenate([np.arange(300), rng.integers(0, 2 ** 32, 300),
+                           [2 ** 32 - 1]]).astype(np.uint32)
+    want = np.asarray(jmasking.mask_bits(
+        np.uint32(seed), np.arange(120, dtype=np.uint32)[:, None],
+        offs[None, :]))
+    got = ref.split_mask_bits(seed, 120,
+                              torch.from_numpy(offs.astype(np.int64)))
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", [1, 2, 5, 10, 16])
+def test_integer_net_equals_float64_net(P, mask_kind):
+    """The net pad summed in int32 and converted once equals, bit for bit,
+    the plain version's float64 product rounded once to f32."""
+    _, mask = _case(P, 1, mask_kind)
+    m = _torch_mask(mask)
+    rng = np.random.default_rng(P)
+    offs = torch.from_numpy(np.concatenate([
+        np.arange(500), rng.integers(0, 2 ** 32, 500),
+        [2 ** 32 - 1]]).astype(np.int64))
+    sign = torch.as_tensor(masking.pair_sign_matrix(P))
+    alive = ref._alive(m, P, "cpu")
+    sign_alive = sign * ref._pair_alive(sign, alive).to(torch.float32)
+    pads = masking.mask_block(0xC0FFEE, torch.arange(sign.shape[1])[:, None],
+                              offs[None, :])
+    want = (sign_alive.double() @ pads.double()).to(torch.float32)
+    got = ref.float_net_pads(0xC0FFEE, P, offs, m)
+    assert torch.equal(got, want)
+    assert int(ref.int_net_pads(0xC0FFEE, P, offs, m).abs().max()) < 2 ** 28
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", PS)
+def test_float_kernel_order_within_tolerance(P, mask_kind):
+    """The float kernel's order against JAX's reference (the same inputs
+    as test_float_round_within_tolerance at N = 777) within atol = P *
+    1e-6, and against the port's plain version; dead rows, inf and NaN
+    included, bit-identical."""
+    u, mask = _case(P, 777, mask_kind)
+    seed, alpha = 1234 + P, 0.7
+    want = np.asarray(jref.masked_rolling_update_reference(
+        jnp.asarray(u), jnp.asarray([seed], jnp.uint32), alpha,
+        _jax_mask(mask)))
+    got = ref.masked_rolling_update_kernel_order(
+        torch.from_numpy(u), seed, alpha, _torch_mask(mask))
+    assert got.dtype == torch.float32 and got.shape == (P, 777)
+    np.testing.assert_allclose(got.numpy(), want, atol=P * 1e-6, rtol=0)
+    plain = ref.masked_rolling_update_reference(
+        torch.from_numpy(u), seed, alpha, _torch_mask(mask))
+    torch.testing.assert_close(got, plain, atol=P * 1e-6, rtol=0,
+                               equal_nan=True)
+    if mask is not None:
+        dead = mask == 0
+        np.testing.assert_array_equal(got.numpy()[dead].view(np.uint32),
+                                      u[dead].view(np.uint32))
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", PS)
+def test_int_kernel_order_equals_jax(P, mask_kind):
+    """The int kernel's order (clamp before one rounding, pads from 0,
+    encodes added last) == JAX's reference == the port's plain version."""
+    u, mask = _case(P, 777, mask_kind)
+    seed = 0x5EED + P + 777
+    want = np.asarray(jref.masked_field_wsum_reference(
+        jnp.asarray(u), jnp.asarray([seed], jnp.uint32), _jax_mask(mask)))
+    got = ref.masked_field_wsum_kernel_order(torch.from_numpy(u), seed,
+                                             _torch_mask(mask))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_u32(got), want)
+    assert torch.equal(got, ref.masked_field_wsum_reference(
+        torch.from_numpy(u), seed, _torch_mask(mask)))
+
+
+@pytest.mark.parametrize("frac_bits", [8, 16, 20])
+def test_clamp_first_encode_equals_encode(frac_bits):
+    """Clamp then round == round then clamp, at ties, the int32 edge and
+    +-inf."""
+    rng = np.random.default_rng(frac_bits)
+    step = 2.0 ** -frac_bits
+    edge = 2.0 ** (31 - frac_bits)
+    x = np.concatenate([
+        rng.standard_normal(2000) * 4, (np.arange(-40, 40) + 0.5) * step,
+        [0.0, -0.0, 1e30, -1e30, edge, -edge, np.inf, -np.inf],
+        np.nextafter(np.float32(edge), np.float32(0)) * np.array([1, -1]),
+    ]).astype(np.float32)
+    t = torch.from_numpy(x)
+    assert torch.equal(ref.encode_rows_clamp_first(t, frac_bits),
+                       field.encode_rows(t, frac_bits))
+
+
+# ----------------------------------------------------------------------
 # seed and dispatch contracts (same as the JAX package's)
 
 @pytest.mark.parametrize("seed,want", [(5, 5), (-1, 2 ** 32 - 1),
