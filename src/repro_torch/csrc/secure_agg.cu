@@ -1,8 +1,8 @@
 // Secure-aggregation and DP kernels for Hopper (sm_90a), plain C interface.
 //
-// Three kernels share one counter-based PRG (mix32 / mask_bits, the
-// lowbias32 finalizer over a Weyl sequence of the JAX package's
-// kernels/secure_agg/masking.py):
+// Three kernels share one counter-based PRG (mask_bits of the JAX
+// package's kernels/secure_agg/masking.py: the lowbias32 finalizer mix32
+// over a Weyl sequence):
 //
 //   masked_rolling_update_kernel  replaces the TPU kernel
 //       repro/kernels/secure_agg/kernel.py:masked_rolling_update_flat
@@ -77,10 +77,41 @@
 //   byte and integer times, when the loads, the hashing and the stores
 //   overlap.
 //
-// clip_noise_kernel keeps the first design: one thread owns one column,
-// the column-independent part of each stream's hash (stream_key) is
-// computed once per block into shared memory, and each (row, column) then
-// costs two mix32.  Bound: bytes, (P, N) f32 read and written, 2.62 us.
+// Design of clip_noise_kernel (the DP publication), in the same form: one
+// thread owns one column, kAggThreads threads a block, and a thread issues
+// its P loads before the range guard.
+//   - The 2P stream keys, stream_key(seed ^ tag, p) for tags A and B, are
+//     computed on the host in split form and passed by value (DpKeys), so
+//     each of a (row, column)'s two words is mix32_tail(key' ^ c'), with
+//     the split counter c' computed once per column for both streams of
+//     every row.  No shared memory, no barrier.
+//   - The row constants are computed once per warp: lane p < P loads
+//     norms[p] and mask[p] and computes min(1, clip / max(norm, 1e-12));
+//     the alive bits come from one ballot and each row's factor from a
+//     shuffle, so no thread divides more than once.
+//   - The noise of a column's rows is computed in three passes: the
+//     words, the uniforms and -2 logf(u1) of every row, which branch
+//     nowhere, so ptxas interleaves the rows; then the cosf of every row;
+//     then each row's sqrtf, blend and store.  Each cosf and sqrtf holds a
+//     branch to a slow path that no argument here takes, and ptxas moved
+//     no work across those branches: with each row's noise written in one
+//     piece, one row's dependent chain ran at a time, and on an H100 the
+//     kernel took 6.9 us at the main path's shape, not 5.9 (PERF.md).
+//   - A dead row passes through bit for bit: its output is selected, not
+//     computed, so inf and NaN stay where they are (its noise is
+//     computed and thrown away, which keeps the passes free of a branch).
+//     An alive row gets factor x + sigma clip z, z = sqrtf(-2 logf(u1))
+//     cosf(2 pi u2) with the accurate logf / sqrtf / cosf, each operation
+//     in the plain version's order.  kernels/dp/ref.py's
+//     clip_noise_kernel_order is this arithmetic in PyTorch.
+//   Bound at the main path's shape: bytes, (P, N) f32 read and written
+//   once, 2.62 us; its operations per alive (row, column), two words of 5
+//   logic/shift ops and 2 multiplies, 2 conversions, log / sqrt / cos on
+//   the special-function pipe and 11 float operations, take 0.80 us.  The
+//   nearer limit is instruction issue: the accurate log, sqrt and cos are
+//   sequences of tens of SASS instructions, and the P = 10 kernel issues
+//   about 1,100 a column, 3.7 us at one warp instruction a clock on each
+//   scheduler (chip_smoke.py:print_sass_floor counts them).
 //
 // Rounding.  Built with -fmad=false, so no multiply-add is contracted and
 // every float expression rounds where the plain PyTorch version rounds.
@@ -115,30 +146,18 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 }
 
 // The column-independent part of mask_bits(seed, stream, col).
-__device__ __forceinline__ uint32_t stream_key(uint32_t seed,
-                                               uint32_t stream) {
+__host__ __device__ __forceinline__ uint32_t stream_key(uint32_t seed,
+                                                        uint32_t stream) {
   return mix32(mix32(seed ^ kGolden) ^ (stream * kPairMul));
 }
 
-// mask_bits(seed, stream, col) given stream_key(seed, stream).
-__device__ __forceinline__ uint32_t mask_bits(uint32_t key, uint32_t col) {
-  return mix32(key ^ (col * kGolden));
-}
-
-// Participation bits: bit p set iff row p survives (mask == nullptr: all).
-template <int P>
-__device__ __forceinline__ uint32_t alive_bits(const float* mask) {
-  uint32_t bits = 0;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    if (mask == nullptr || mask[p] > 0.0f) bits |= 1u << p;
-  return bits;
-}
+// A stream key in split form: its half of mix32's first xor-shift.
+inline uint32_t split_key(uint32_t key) { return key ^ (key >> 16); }
 
 // ---------------------------------------------------------------------
 // The fused MPC round (the design notes at the top of this file).
 
-constexpr int kAggThreads = 128;   // threads of a masked kernel's block
+constexpr int kAggThreads = 128;   // threads of a fused kernel's block
 constexpr int kMaxPairs = kMaxRows * (kMaxRows - 1) / 2;
 constexpr float kU23 = 1.1920928955078125e-07f;  // 2^-23
 
@@ -150,11 +169,8 @@ struct PairKeys {
 
 PairKeys split_pair_keys(uint32_t seed, int p) {
   PairKeys keys{};
-  const uint32_t h = mix32(seed ^ kGolden);
-  for (int k = 0; k < p * (p - 1) / 2; ++k) {
-    const uint32_t key = mix32(h ^ ((uint32_t)k * kPairMul));
-    keys.k[k] = key ^ (key >> 16);
-  }
+  for (int k = 0; k < p * (p - 1) / 2; ++k)
+    keys.k[k] = split_key(stream_key(seed, (uint32_t)k));
   return keys;
 }
 
@@ -165,14 +181,19 @@ __device__ __forceinline__ uint32_t split_counter(uint32_t col) {
   return c ^ (c >> 16);
 }
 
-// mask_bits(seed, k, col) from the split key and counter (mix32 after its
-// first xor-shift), and-ed with the pair's gate `on` (all ones or zero).
-__device__ __forceinline__ uint32_t pad_word(uint32_t key, uint32_t c,
-                                             uint32_t on) {
-  uint32_t x = (key ^ c) * kMulA;
+// mix32 after its first xor-shift: mask_bits(seed, k, col) ==
+// mix32_tail(key' ^ c') for the split key and counter.
+__device__ __forceinline__ uint32_t mix32_tail(uint32_t x) {
+  x *= kMulA;
   x ^= x >> 15;
   x *= kMulB;
-  return (x ^ (x >> 16)) & on;
+  return x ^ (x >> 16);
+}
+
+// A pair's pad word, and-ed with its gate `on` (all ones or zero).
+__device__ __forceinline__ uint32_t pad_word(uint32_t key, uint32_t c,
+                                             uint32_t on) {
+  return mix32_tail(key ^ c) & on;
 }
 
 // Participation bits from one load per warp: lane p < P reads mask[p]
@@ -290,37 +311,64 @@ inline unsigned agg_blocks(int64_t n) {
   return (unsigned)((n + kAggThreads - 1) / kAggThreads);
 }
 
+// A launch's DP stream keys in split form, one per row and tag, passed by
+// value: each is a constant-bank operand.
+struct DpKeys {
+  uint32_t a[kMaxRows], b[kMaxRows];
+};
+
+DpKeys split_dp_keys(uint32_t seed, int p) {
+  DpKeys keys{};
+  for (int r = 0; r < p; ++r) {
+    keys.a[r] = split_key(stream_key(seed ^ kDpTagA, (uint32_t)r));
+    keys.b[r] = split_key(stream_key(seed ^ kDpTagB, (uint32_t)r));
+  }
+  return keys;
+}
+
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAggThreads)
 clip_noise_kernel(const float* __restrict__ u, float* __restrict__ out,
                   const float* __restrict__ norms,
-                  const float* __restrict__ mask, int64_t n, uint32_t seed,
-                  float clip, float sigma) {
-  __shared__ uint32_t keys_a[P], keys_b[P];
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    keys_a[p] = stream_key(seed ^ kDpTagA, (uint32_t)p);
-    keys_b[p] = stream_key(seed ^ kDpTagB, (uint32_t)p);
-  }
-  __syncthreads();
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const uint32_t alive = alive_bits<P>(mask);
-  const uint32_t col = (uint32_t)g;
+                  const float* __restrict__ mask, int64_t n,
+                  const DpKeys keys, float clip, float sigma) {
+  // the row constants once per warp: lane p < P computes row p's factor
+  const uint32_t alive = alive_ballot<P>(mask);
+  const int lane = threadIdx.x & 31;
+  const float norm = lane < P ? norms[lane] : 1.0f;
+  const float lane_factor = fminf(1.0f, clip / fmaxf(norm, 1e-12f));
+  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
+  float x[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) x[p] = g < n ? u[p * n + g] : 0.0f;
+  float factor[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    factor[p] = __shfl_sync(0xffffffffu, lane_factor, p);
+  if (g >= n) return;  // after the loads and the shuffles
+  const uint32_t c = split_counter((uint32_t)g);
   const float noise_scale = sigma * clip;
+  // three passes over the rows (the notes at the top): the words, the
+  // uniforms and the logs, which branch nowhere; the cosines; the square
+  // roots, the blend and the stores
+  float r[P], a[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const float x = u[p * n + g];
-    if (!((alive >> p) & 1u)) {
-      out[p * n + g] = x;  // a dropped row publishes nothing
-      continue;
-    }
-    const float factor = fminf(1.0f, clip / fmaxf(norms[p], 1e-12f));
-    const uint32_t b1 = mask_bits(keys_a[p], col);
-    const uint32_t b2 = mask_bits(keys_b[p], col);
+    const uint32_t b1 = mix32_tail(keys.a[p] ^ c);
+    const uint32_t b2 = mix32_tail(keys.b[p] ^ c);
     const float u1 = (float)((b1 >> 8) + 1u) * kU24;  // (0, 1]
     const float u2 = (float)(b2 >> 8) * kU24;         // [0, 1)
-    const float z = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-    out[p * n + g] = factor * x + noise_scale * z;
+    r[p] = -2.0f * logf(u1);
+    a[p] = kTwoPi * u2;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) a[p] = cosf(a[p]);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float z = sqrtf(r[p]) * a[p];
+    // a dropped row publishes nothing: it passes through bit for bit
+    out[p * n + g] = ((alive >> p) & 1u) ? factor[p] * x[p] + noise_scale * z
+                                         : x[p];
   }
 }
 
@@ -507,12 +555,13 @@ int masked_field_wsum_f32(const void* u, void* out, const void* mask, int p,
 int clip_noise_f32(const void* u, void* out, const void* norms,
                    const void* mask, int p, int64_t n, uint32_t seed,
                    float clip, float sigma, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || p < 1 || p > kMaxRows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const DpKeys keys = split_dp_keys(seed, p);
 #define LAUNCH(P)                                                        \
-  clip_noise_kernel<P><<<blocks_for(n), kThreads, 0, s>>>(               \
+  clip_noise_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>(            \
       (const float*)u, (float*)out, (const float*)norms,                 \
-      (const float*)mask, n, seed, clip, sigma)
+      (const float*)mask, n, keys, clip, sigma)
   REPRO_DISPATCH_ROWS(p, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();

@@ -106,6 +106,25 @@ def _check_secure_agg(u, m, P):
         assert _same_bits(out[dead], u[dead])
 
 
+def _check_dp(u, m):
+    """The DP kernel on (u, m): within rtol = 1e-5, atol = 1e-6 of the
+    plain version, equal bit for bit to its kernel-order model
+    (``dp_ref.clip_noise_kernel_order``), dead rows bit-untouched."""
+    norms = dp_ref._row_norms(u)
+    before = dp_kernel.clip_noise_flat.launches
+    out = dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
+    assert dp_kernel.clip_noise_flat.launches == before + 1
+    want = dp_ref.clip_noise_reference(u, 5, 0.5, 1.0, m, norms)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+    model = dp_ref.clip_noise_kernel_order(u, 5, 0.5, 1.0, m, norms)
+    differ = int((out.view(torch.int32) != model.view(torch.int32)).sum())
+    assert differ == 0, f"{differ} of {out.numel()} differ from the model"
+    if m is not None:
+        dead = m == 0
+        assert _same_bits(out[dead], u[dead])
+
+
 # N = 2, 3, 5; 129, one column past a block's 128; N % 4 == 0 and != 0
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 2, 3, 5, 129, 4096, 4097, 109634])
@@ -128,19 +147,25 @@ def test_secure_agg_kernels_take_offset_views(cuda, k, mask_kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask_kind", MASKS)
 def test_secure_agg_kernels_are_repeatable(cuda, mask_kind):
-    """21 calls at the main path's (10, 109,634) give the same bits."""
+    """21 calls at the main path's (10, 109,634) give the same bits, the
+    DP kernel's too."""
     u, m = _case(10, 109634, mask_kind, cuda)
+    norms = dp_ref._row_norms(u)
     out = agg_kernel.masked_rolling_update_flat(u, 5, 0.7, m)
     words = agg_kernel.masked_field_wsum_flat(u, 5, m)
+    noised = dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
     for _ in range(20):
         assert _same_bits(agg_kernel.masked_rolling_update_flat(u, 5, 0.7, m),
                           out)
         assert torch.equal(agg_kernel.masked_field_wsum_flat(u, 5, m), words)
+        assert _same_bits(dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m),
+                          noised)
 
 
 @pytest.mark.cuda
 def test_secure_agg_kernels_match_plain_many_waves(cuda):
-    """(10, 2^24 + 3): 131,073 blocks, so many waves; two dead rows."""
+    """(10, 2^24 + 3): 131,073 blocks, so many waves; two dead rows; the
+    DP kernel too."""
     u, m = _case(10, 2 ** 24 + 3, "two_dead", cuda)
     words = agg_kernel.masked_field_wsum_flat(u, 3, m)
     assert torch.equal(words, agg_ref.masked_field_wsum_reference(u, 3, m))
@@ -148,20 +173,27 @@ def test_secure_agg_kernels_match_plain_many_waves(cuda):
     torch.testing.assert_close(
         out, agg_ref.masked_rolling_update_reference(u, 3, 0.7, m),
         atol=10 * 1e-6, rtol=0, equal_nan=True)
+    _check_dp(u, m)
+
+
+# P = 1 and 16, the edges of the kernel's template; N = 129, one column
+# past a block's 128; the main path's (10, 109,634)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 129, 4097, 109634])
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", [1, 10, 16])
+def test_dp_kernel_matches_plain(cuda, P, N, mask_kind):
+    u, m = _case(P, N, mask_kind, cuda)
+    _check_dp(u, m)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 4097, 109634])
 @pytest.mark.parametrize("mask_kind", MASKS)
-def test_dp_kernel_matches_plain(cuda, N, mask_kind):
-    u, m = _case(10, N, mask_kind, cuda)
-    norms = dp_ref._row_norms(u)
-    before = dp_kernel.clip_noise_flat.launches
-    out = dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
-    assert dp_kernel.clip_noise_flat.launches == before + 1
-    want = dp_ref.clip_noise_reference(u, 5, 0.5, 1.0, m, norms)
-    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6,
-                               equal_nan=True)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_dp_kernel_takes_offset_views(cuda, k, mask_kind):
+    """The rows start k elements into their storage."""
+    u, m = _case(10, 4097, mask_kind, cuda)
+    _check_dp(_at_offset(u, k), m)
 
 
 @pytest.mark.cuda

@@ -102,3 +102,56 @@ def test_cpu_wrapper_takes_the_plain_version():
         ops.dp_clip_noise(t, 8, 1.0, 0.5, mask=m, impl="fused"),
         ops.dp_clip_noise(t, 8, 1.0, 0.5, mask=m, impl="ref"))
     assert tkernel.clip_noise_flat.launches == before
+
+
+# ----------------------------------------------------------------------
+# the kernel's own arithmetic (ref.clip_noise_kernel_order): split stream
+# keys and counter, each row's factor once.  The card tests hold the
+# kernel against it.
+
+@pytest.mark.parametrize("P", [1, 10, 16])
+@pytest.mark.parametrize("seed", [0, 77, 2 ** 32 - 1])
+def test_split_dp_words_bitexact(seed, P):
+    """mix32_tail(key' ^ c') of both tags == masking.mask_bits(seed ^ tag,
+    p, col) == the JAX package's words, counters 0..299, random counters
+    and 2^32 - 1."""
+    rng = np.random.default_rng(seed & 0xFFFF)
+    offs = np.concatenate([np.arange(300), rng.integers(0, 2 ** 32, 300),
+                           [2 ** 32 - 1]]).astype(np.uint32)
+    row = np.arange(P, dtype=np.uint32)[:, None]
+    t_offs = torch.from_numpy(offs.astype(np.int64))
+    words = ref.split_dp_words(seed, P, t_offs)
+    for tag, got in zip((masking.DP_TAG_A, masking.DP_TAG_B), words):
+        assert got.shape == (P, offs.size)
+        assert torch.equal(got, masking.mask_bits(
+            seed ^ tag, torch.from_numpy(row.astype(np.int64)),
+            t_offs[None, :]))
+        want = np.asarray(jmasking.mask_bits(np.uint32(seed ^ tag), row,
+                                             offs[None, :]))
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("N", [1, 129, 4097])
+@pytest.mark.parametrize("P", [1, 10, 16])
+def test_kernel_order_equals_plain_and_matches_jax(P, N, mask_kind):
+    """The kernel's order == the port's plain version bit for bit, within
+    rtol 1e-5, atol 1e-6 of JAX's reference; dead rows (inf, NaN) bit-
+    untouched."""
+    u, mask = _case(P, N, mask_kind, seed=5)
+    seed, clip, sigma = 99 + N, 0.5, 1.0
+    t = torch.from_numpy(u)
+    m = None if mask is None else torch.from_numpy(mask)
+    got = ref.clip_noise_kernel_order(t, seed, clip, sigma, m)
+    assert got.dtype == torch.float32 and got.shape == (P, N)
+    plain = ref.clip_noise_reference(t, seed, clip, sigma, m)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  plain.numpy().view(np.uint32))
+    want = np.asarray(jdp_ref.clip_noise_reference(
+        jnp.asarray(u), jnp.asarray([seed], jnp.uint32), clip, sigma,
+        None if mask is None else jnp.asarray(mask)))
+    alive = np.ones(P, bool) if mask is None else mask > 0
+    np.testing.assert_allclose(got.numpy()[alive], want[alive], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[~alive].view(np.uint32),
+                                  u[~alive].view(np.uint32))
