@@ -20,6 +20,15 @@ after:
   dropout with DP, 30% sign-flip and label-flip attackers): the survivor
   masks reach the masked kernels, and a round that did not commit leaves
   every institution's params bit-untouched;
+* the same federation (a warm-up round, then 3 timed ones) under the
+  other merges: ring, hierarchical (groups of 2 and of 5), quantized; the
+  robust merges (trimmed mean, coordinate median, norm-gated mean) for 6
+  rounds under 30% sign-flip attackers; a partial merge of the conv
+  backbone through secure_mean (float and int) with personal heads, and
+  one whose backbone and head merge in turns;
+* a fleet of P = 32 hospitals at full width with the fleet consensus
+  parameters, 6 rounds in each secure_mean mode, through the fused
+  kernels' P > 16 versions;
 * the legacy two-stage MPC round (``core.secure_agg
   .secure_rolling_update``: masks drawn on the card, shares materialized,
   one aggregate kernel) in both domains, at P = 10 on the CNN's N and at
@@ -42,7 +51,8 @@ after:
   round's peak depth by depth up to the first that reaches it.
 
 Before the full-width paths, small runs on the card are held against the
-same runs on the CPU, and a mid-traffic hot-swap is checked for identity
+same runs on the CPU (the CNN federation in each mode, under faults and
+under each merge), and a mid-traffic hot-swap is checked for identity
 with a fresh engine (dense and rwkv6).  Prints each kernel's time beside
 its bound, its plain version's time and a PyTorch library call's time
 where one exists, then a JSON line of kernels, the card's name and power
@@ -106,6 +116,16 @@ AGG_CASES = [(P_FULL, N_FULL, (), 0), (P_FULL, N_FULL, (0, 4), 0),
              (16, 4096, (3, 9), 0), (16, 4097, (), 0),
              (10, 4096, (), 1), (7, 4099, (2, 5), 1)]
 AGG_REPEATS = 21                          # calls held bit-identical
+# the fused kernels past 16 rows (their P > 16 kernels), with the same
+# standards: P = 17 (one past the register kernels), the fleet's 32, 64
+# and 128, at N = 3, a ragged N and the main path's, all alive and rows 0
+# and 4 dead (inf, NaN), and one case one element into its storage
+WIDE_P = (17, 32, 64, 128)
+WIDE_CASES = [(P, N, dead, 0) for P in WIDE_P for N in (3, N_RAGGED, N_FULL)
+              for dead in ((), (0, 4))] + [(33, N_RAGGED, (0, 4), 1)]
+# the kernel-order models and the plain versions hold (pairs, columns)
+# int64 words at once: at most this many (1 GiB)
+WIDE_WORDS = 2 ** 27
 # flash attention on the card vs its plain version:
 # (B, S, Hq, Hkv, hd, dtype, causal, window, layout); layout "" gives q,
 # k, v their own (B, S, H, hd) tensors, "qkv" slices them from one fused
@@ -259,22 +279,22 @@ LM_KERNEL_SOURCES = {
 
 
 def op_counts(kind, P, N, alive_rows):
-    """The fewest operations per class the kernel's function needs for
-    these inputs (only surviving pairs exchange pads).  A pad word is
+    """The fewest operations per class the kernel's function needs for these
+    inputs, at any P (only surviving pairs exchange pads).  A pad word is
     mask_bits through the split hash: mix32's first xor-shift distributes
     over xor, so the pair's half is computed once per launch and the
     counter's half, c ^ (c >> 16) with c = column x golden, once per
-    column (1 multiply, 2 logic/shift ops); each (pair, column) then
-    costs 5 logic/shift ops and 2 multiplies.  The float pad adds a shift
-    and an integer accumulate per pair and one conversion per alive row
-    (the net pad is summed in int32), then per alive row a scale, the
-    share, the sum and the 3-op blend, and one division per column.  The
-    int kernel's output needs no pad word: in Z_2^32 each alive pair's
-    word enters the survivors' sum once added and once subtracted, so the
-    function is the survivors' encoded sum, per alive row a scale, a
-    clamp (2), one conversion and an add.  DP: two words per (row, column) sharing the counter's
-    half, plus 2 shifts, an add, 2 conversions, log / sqrt / cos and 11
-    float ops."""
+    column (1 multiply, 2 logic/shift ops); each (pair, column) then costs
+    5 logic/shift ops and 2 multiplies.  The float pad adds a shift and an
+    integer accumulate per pair and one conversion per alive row (the net
+    pad is summed in int32), then per alive row a scale, the share, the
+    sum and the 3-op blend, and one division per column.  The int kernel's
+    output needs no pad word: in Z_2^32 each alive pair's word enters the
+    survivors' sum once added and once subtracted, so the function is the
+    survivors' encoded sum, per alive row a scale, a clamp (2), one
+    conversion and an add.  DP: two words per (row, column) sharing the
+    counter's half, plus 2 shifts, an add, 2 conversions, log / sqrt / cos
+    and 11 float ops."""
     K = alive_rows * (alive_rows - 1) // 2
     A = alive_rows
     if kind == "masked_rolling_update":
@@ -372,19 +392,22 @@ def device_us(fn, iters, host=True):
     return out
 
 
+LEAD_IN = 5     # calls ahead of the timed ones in each profiled window
+
+
 def kernel_median_ms(fn, iters, tag):
     """Median device ms of one launch of the kernel whose name holds
-    `tag`: fn(i) is called iters + 1 times under torch.profiler's CUDA
-    activity, the first call a lead-in, and the median is taken over the
-    last `iters` launches the trace recorded, in start order.  Late in a
-    long process the trace can miss launches at the start of its window
-    (seen on the card: one of 101, two of 22); the lead-in absorbs one, a
-    trace that recorded fewer than `iters` is taken again, and three such
+    `tag`: fn(i) is called LEAD_IN + iters times under torch.profiler's
+    CUDA activity, and the median is taken over the last `iters` launches
+    the trace recorded, in start order.  Late in a long process the trace
+    can miss launches at the start of its window (seen on the card: one
+    of 101, two and three of 22); the lead-in calls absorb them, a trace
+    that recorded fewer than `iters` is taken again, and three such
     traces fail the run."""
     for _ in range(3):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for i in range(iters + 1):
+            for i in range(LEAD_IN + iters):
                 fn(i)
             torch.cuda.synchronize()
         mine = sorted((e.time_range.start, e.time_range.elapsed_us())
@@ -393,7 +416,7 @@ def kernel_median_ms(fn, iters, tag):
                       and tag in e.name)
         if len(mine) >= iters:
             return float(np.median([us for _, us in mine[-iters:]])) / 1e3
-    raise AssertionError((tag, len(mine), iters + 1))
+    raise AssertionError((tag, len(mine), LEAD_IN + iters))
 
 
 def print_resource_usage(lib_path, tag):
@@ -491,8 +514,9 @@ def secure_agg_kernels(dev):
             replaces="src/repro/kernels/secure_agg/kernel.py:209",
             run=lambda u, m: agg_kernel.masked_rolling_update_flat(
                 u, 0xC0FFEE, 0.7, m),
-            plain=lambda u, m: agg_ref.masked_rolling_update_reference(
-                u, 0xC0FFEE, 0.7, m),
+            plain=lambda u, m, chunk=1 << 20:
+                agg_ref.masked_rolling_update_reference(
+                    u, 0xC0FFEE, 0.7, m, chunk=chunk),
             model=lambda u, m: agg_ref.masked_rolling_update_kernel_order(
                 u, 0xC0FFEE, 0.7, m)),
         "masked_field_wsum": dict(
@@ -501,8 +525,9 @@ def secure_agg_kernels(dev):
             replaces="src/repro/kernels/secure_agg/kernel.py:177",
             run=lambda u, m: agg_kernel.masked_field_wsum_flat(
                 u, 0xC0FFEE, m),
-            plain=lambda u, m: agg_ref.masked_field_wsum_reference(
-                u, 0xC0FFEE, m),
+            plain=lambda u, m, chunk=1 << 20:
+                agg_ref.masked_field_wsum_reference(u, 0xC0FFEE, m,
+                                                    chunk=chunk),
             model=lambda u, m: agg_ref.masked_field_wsum_kernel_order(
                 u, 0xC0FFEE, m)),
         "clip_noise": dict(
@@ -511,8 +536,8 @@ def secure_agg_kernels(dev):
             replaces="src/repro/kernels/dp/kernel.py:69",
             run=lambda u, m: dp_kernel.clip_noise_flat(
                 u, dp_ref._row_norms(u), 0xC0FFEE, 0.5, 1.0, m),
-            plain=lambda u, m: dp_ref.clip_noise_reference(
-                u, 0xC0FFEE, 0.5, 1.0, m, dp_ref._row_norms(u)),
+            plain=lambda u, m, chunk=1 << 20: dp_ref.clip_noise_reference(
+                u, 0xC0FFEE, 0.5, 1.0, m, dp_ref._row_norms(u), chunk=chunk),
             model=lambda u, m: dp_ref.clip_noise_kernel_order(
                 u, 0xC0FFEE, 0.5, 1.0, m, dp_ref._row_norms(u))),
     }
@@ -583,6 +608,52 @@ def check_secure_agg(kernels, dev):
             assert same_bits(k["run"](u, m), first), name
         print(f"check {name}: {AGG_REPEATS} calls at ({P_FULL}, {N_FULL}) "
               f"bit-identical")
+
+
+def check_secure_agg_wide(kernels, dev):
+    """The three fused wrappers past 16 rows, where they launch their P >
+    16 kernels (counted on `launches_wide`, asserted), on WIDE_CASES with
+    `check_secure_agg`'s standards: the share-sum equal to the plain
+    version, the float round within atol = P * 1e-6 of it, the DP noise
+    within rtol = 1e-5, atol = 1e-6; all three equal bit for bit to their
+    kernel-order models (the pair models on the first WIDE_WORDS / pairs
+    columns: a column's result depends on that column alone); dead rows
+    bit-untouched."""
+    rng = np.random.default_rng(1)
+    for name, k in kernels.items():
+        k["wide_max_abs_err"] = 0.0
+        t0 = time.perf_counter()
+        for P, N, dead, offset in WIDE_CASES:
+            u, m = agg_case(rng, dev, P, N, dead, offset)
+            case = (name, P, N, dead, offset)
+            before = k["wrapper"].launches_wide
+            got = k["run"](u, m)
+            torch.cuda.synchronize()
+            assert k["wrapper"].launches_wide == before + 1, case
+            # the DP model's row norms need whole rows; it holds no pairs
+            pairs = P * (P - 1) // 2
+            cols = N if name == "clip_noise" else min(N, WIDE_WORDS // pairs)
+            model = k["model"](u if cols == N else
+                               u[:, :cols].contiguous(), m)
+            assert same_bits(got[..., :cols], model), case
+            want = k["plain"](u, m, chunk=max(1024, WIDE_WORDS // pairs))
+            if name == "masked_field_wsum":
+                assert torch.equal(got, want), case
+                continue
+            tol = (dict(atol=P * 1e-6, rtol=0)
+                   if name == "masked_rolling_update"
+                   else dict(atol=1e-6, rtol=1e-5))
+            torch.testing.assert_close(got, want, equal_nan=True, **tol)
+            alive = [p for p in range(P) if p not in dead]
+            err = float((got[alive] - want[alive]).abs().max())
+            k["wide_max_abs_err"] = max(k["wide_max_abs_err"], err)
+            for p in dead:
+                assert same_bits(got[p], u[p]), case
+        print(f"check {name} P > 16: kernel == plain on {len(WIDE_CASES)} "
+              f"(P, N, dead rows, offset) cases, P in {WIDE_P}; == the "
+              f"kernel-order model bit for bit; max |err| "
+              f"{k['wide_max_abs_err']:.3g} ({time.perf_counter() - t0:.1f}"
+              f" s)")
 
 
 def check_flash(dev):
@@ -1391,6 +1462,70 @@ def time_secure_agg(dev, kernels, totals):
     return rows
 
 
+def wide_call_ms(fn, name, iters=21):
+    """Median device ms of one fn(i) call of a fused wrapper past 16
+    rows: its main kernel's median plus its key kernel's, times that
+    kernel's launches a call (DP: one for each stream)."""
+    keys = kernel_median_ms(fn, iters, "wide_keys_kernel")
+    return (kernel_median_ms(fn, iters, f"{name}_wide_kernel")
+            + (2 if name == "clip_noise" else 1) * keys)
+
+
+WIDE_TIMED = (32, 128)
+
+
+def time_secure_agg_wide(dev, kernels, launches_wide):
+    """Each fused wrapper's P > 16 kernel at (P, N_FULL) for P in
+    WIDE_TIMED, rows 0 and 4 dead: the device time of a call (its key
+    kernel and its main kernel; profiler medians over 21 calls cycling
+    inputs larger than the L2) beside its bound and the plain version's
+    time (3 calls).  Returns the kernels line's rows, the fleet's P = 32
+    as `ms`, P = 128 as `ms_p128`."""
+    from repro_torch.kernels.dp import kernel as dp_kernel
+    from repro_torch.kernels.dp import ref as dp_ref
+    rows = []
+    for name, k in kernels.items():
+        row = {"name": f"{name}_wide", "route": "cuda",
+               "source": k["source"], "replaces": k["replaces"],
+               "launches": launches_wide[name],
+               "max_abs_err": k["wide_max_abs_err"], "library_ms": None}
+        for P in WIDE_TIMED:
+            n_buf = max(2, -(-60_000_000 // (P * N_FULL * 4)))
+            bufs = [torch.randn((P, N_FULL), device=dev)
+                    for _ in range(n_buf)]
+            dead = torch.ones(P, device=dev)
+            dead[[0, 4]] = 0.0
+            chunk = max(1024, WIDE_WORDS // (P * (P - 1) // 2))
+            if name == "clip_noise":
+                norms = {id(b): dp_ref._row_norms(b) for b in bufs}
+                run = lambda u: dp_kernel.clip_noise_flat(   # noqa: E731
+                    u, norms[id(u)], 7, 0.5, 1.0, dead)
+                plain = lambda u: dp_ref.clip_noise_reference(  # noqa: E731
+                    u, 7, 0.5, 1.0, dead, norms[id(u)])
+            else:
+                run = lambda u, k=k: k["run"](u, dead)   # noqa: E731
+                plain = lambda u, k=k, c=chunk: k["plain"](  # noqa: E731
+                    u, dead, chunk=c)
+            ms = wide_call_ms(lambda i: run(bufs[i % n_buf]), name)
+            p_ms = cuda_ms(plain, bufs, 3)
+            bytes_ms, ops_ms = bound(name, P, N_FULL, P - 2)
+            b_ms = max(bytes_ms, ops_ms)
+            b_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            tag = "" if P == WIDE_TIMED[0] else f"_p{P}"
+            row.update({f"ms{tag}": ms, f"plain_ms{tag}": p_ms,
+                        f"bound_ms{tag}": b_ms, f"bound_by{tag}": b_by})
+            print(f"time {name} P > 16 at ({P}, {N_FULL}), rows 0 and 4 "
+                  f"dead: {ms * 1e3:.2f} us on the card (key and main "
+                  f"kernels) | plain {p_ms * 1e3:.1f} us | bound "
+                  f"{b_ms * 1e3:.2f} us by {b_by} (bytes "
+                  f"{bytes_ms * 1e3:.2f} us, operations "
+                  f"{ops_ms * 1e3:.2f} us); kernel at {b_ms / ms:.1%} of "
+                  f"bound")
+            del bufs
+        rows.append(row)
+    return rows
+
+
 # ----------------------------------------------------------------------
 # the legacy two-stage round and the fault and attack path (slice 4)
 
@@ -1628,11 +1763,13 @@ class MergeRecorder:
 
     def __init__(self, overlay):
         self.inner, self.aborted, self.dead_rows = overlay._merge, 0, 0
+        self.calls = []     # (round, committed, rows in, merged rows out)
         overlay._merge = self
 
     def __call__(self, stacked, key, committed, ref, rnd, part, survivors):
         from repro_torch.pytree import tree_flatten
         out = self.inner(stacked, key, committed, ref, rnd, part, survivors)
+        self.calls.append((rnd, committed, stacked, out[0]))
         pairs = list(zip(tree_flatten(stacked)[0], tree_flatten(out[0])[0]))
         if not committed:
             self.aborted += 1
@@ -1751,6 +1888,263 @@ def fault_main_path(dev, kernels, fed_kwargs, totals):
         del fed, recorder
 
 
+# ----------------------------------------------------------------------
+# the other merges and the fleet consensus (slice 9)
+
+MERGE_ROUNDS = 3           # timed rounds after a warm-up round
+ROBUST = ("trimmed_mean", "coordinate_median", "norm_gated_mean")
+BACKBONE_N = 93_248        # the conv stack's parameters at width 1.0
+FLEET_P = 32
+FLEET_ROUNDS = 6
+
+
+def partial_kwargs(domain, scheduled=False):
+    """CNNFederation knobs of a partial federation: the conv stack is the
+    shared backbone, merged by secure_mean in `domain`; each hospital
+    keeps a personal head, or, `scheduled`, both blocks are shared and
+    merge in turns, one a round."""
+    from repro_torch.core.merges import BlockSchedule, BlockSpec
+    kw = dict(merge="partial", inner_merge="secure_mean",
+              secure_domain=domain,
+              block_spec=BlockSpec.by_prefix(backbone="conv", head="head"))
+    if scheduled:
+        kw["block_schedule"] = BlockSchedule.round_robin(("backbone",
+                                                          "head"))
+    else:
+        kw["merge_blocks"] = ("backbone",)
+    return kw
+
+
+def merge_runs():
+    """(label, CNNFederation knobs, hierarchical group size or None) of
+    the merges this slice ports; the robust ones under sign_flip_30."""
+    from repro_torch.chaos import attack_scenarios
+    robust = dict(attack_schedule=attack_scenarios(0)["sign_flip_30"],
+                  trim_fraction=0.34)
+    return ([("ring", dict(merge="ring"), None),
+             ("hierarchical", dict(merge="hierarchical"), 2),
+             ("hierarchical", dict(merge="hierarchical"), 5),
+             ("quantized", dict(merge="quantized"), None)]
+            + [(name, dict(merge=name, **robust), None) for name in ROBUST]
+            + [("partial float", partial_kwargs("float"), None),
+               ("partial int", partial_kwargs("int"), None),
+               ("partial scheduled", partial_kwargs("float", True), None)])
+
+
+def merge_card_vs_cpu(dev):
+    """Each merge of `merge_runs` on a small federation (P = 5, 4 for
+    the hierarchical merge's groups of 2; width 0.25, 16x16, FAULT_ROUNDS
+    rounds) on the card and on the CPU: equal commits and survivors,
+    params within atol = 1e-4.  The quantized merge's params are held
+    round by round instead: the CPU merges the rows the card merged, and
+    the results agree within atol = 1e-4.  Over whole runs they cannot:
+    training's last bits differ between cuDNN and the CPU, and the
+    quantizer rounds a few values to the neighbouring int8 step (on an
+    H100: 5 of 1,280 head weights, 0.0089 apart; PERF.md)."""
+    from repro_torch.chaos.harness import CNNFederation
+    from repro_torch.core.merges import get_merge
+    from repro_torch.pytree import tree_flatten, tree_map
+    seen = set()
+    for label, knobs, group in merge_runs():
+        if label in seen or label == "partial scheduled":
+            continue
+        seen.add(label)
+        small = dict(n_institutions=4 if group else 5, image_size=16,
+                     width_scale=0.25, **knobs)
+        g_fed = CNNFederation(None, 0, device=dev, **small)
+        c_fed = CNNFederation(None, 0, device="cpu", **small)
+        recorder = MergeRecorder(g_fed.overlay)
+        _, gtrs = g_fed.run_rounds(FAULT_ROUNDS)
+        _, ctrs = c_fed.run_rounds(FAULT_ROUNDS)
+        assert [t.survivors for t in gtrs] == [t.survivors for t in ctrs]
+        assert [t.committed for t in gtrs] == [t.committed for t in ctrs]
+        if knobs["merge"] == "quantized":
+            pairs = []
+            for rnd, committed, before, after in recorder.calls:
+                ctx = c_fed.overlay._merge_context(rnd, committed, None)
+                want = get_merge("quantized").merge(
+                    tree_map(lambda x: x.cpu(), before), ctx)
+                pairs += zip(tree_flatten(after)[0], tree_flatten(want)[0])
+        else:
+            pairs = zip(tree_flatten(g_fed.stacked)[0],
+                        tree_flatten(c_fed.stacked)[0])
+        for a, b in pairs:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       atol=1e-4)
+        print(f"reference merge {label}: card == CPU on "
+              f"P={small['n_institutions']}, width 0.25, 16x16, "
+              f"{FAULT_ROUNDS} rounds"
+              + (" (each round's merge of the card's rows)"
+                 if knobs["merge"] == "quantized" else "")
+              + f"; committed {[t.committed for t in gtrs]}")
+
+
+class RavelRecorder:
+    """Stands in for the kernel module that the secure-agg ops call the
+    fused wrappers through (`ops._k`) and records the (P, N) shape of
+    every fused call (the launch counts stay on the wrappers); `close`
+    puts the module back."""
+
+    def __init__(self):
+        from repro_torch.kernels.secure_agg import ops
+        self.ops, self.module, self.shapes = ops, ops._k, []
+        ops._k = self
+
+    def __getattr__(self, name):
+        fn = getattr(self.module, name)
+        if not name.startswith("masked_"):
+            return fn
+
+        def record(updates, *args, **kwargs):
+            self.shapes.append(tuple(updates.shape))
+            return fn(updates, *args, **kwargs)
+        return record
+
+    def close(self):
+        self.ops._k = self.module
+
+
+def profiled_round(fed, ms):
+    """Device busy time of one extra round and the idle share of `ms`."""
+    busy = sum(sum(v) for v in device_us(lambda i: fed.run_rounds(1),
+                                         1).values()) / 1e3
+    return f"device busy {busy:.2f} ms of {ms:.2f} ms/round (idle " \
+        f"{1 - busy / ms:.1%})"
+
+
+def merges_main_path(dev, kernels, totals):
+    """The paper's federation at full width (P = 10, width 1.0, 64x64,
+    batch 8, 2 local steps) under each merge of `merge_runs`: a warm-up
+    round, then MERGE_ROUNDS timed rounds (the robust merges FAULT_ROUNDS
+    under sign_flip_30), launch counts from 0.  Every param and loss
+    stays finite; the ledger verifies.  The partial runs: the masked
+    kernel launches once a round, on the backbone's BACKBONE_N-parameter
+    ravel with personal heads, which leave every merge bit-untouched (a
+    scheduled run: the block whose turn it is not); every merged
+    transaction carries "blocks"; `per_institution_eval` gives finite
+    (P,) losses."""
+    from repro_torch.chaos.harness import CNNFederation
+    from repro_torch.pytree import tree_flatten
+    for label, knobs, group in merge_runs():
+        fed = CNNFederation(None, 0, n_institutions=P_FULL, local_steps=2,
+                            batch=8, image_size=64, width_scale=1.0,
+                            device=dev, **knobs)
+        if group is not None:
+            fed.overlay.cfg.group_size = group
+        robust = knobs["merge"] in ROBUST
+        fed.run_rounds(1)                     # warm-up
+        recorder = MergeRecorder(fed.overlay)
+        domain = knobs.get("secure_domain", "float")
+        wrapper = ("masked_field_wsum" if domain == "int"
+                   else "masked_rolling_update")
+        ravel = RavelRecorder()
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        rounds = FAULT_ROUNDS if robust else MERGE_ROUNDS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            metrics, trs = fed.run_rounds(rounds)
+            torch.cuda.synchronize()
+        finally:
+            ravel.close()
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+        counts = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n in counts:
+            totals[n] += counts[n]
+        assert bool(torch.isfinite(metrics["loss"]).all()), label
+        for x in tree_flatten(fed.stacked)[0]:
+            assert bool(torch.isfinite(x).all()), label
+        assert fed.overlay.registry.verify_log()
+        assert recorder.aborted == sum(not t.committed for t in trs)
+        extra = ""
+        if knobs["merge"] == "partial":
+            assert counts[wrapper] == rounds, (label, counts)
+            sched = knobs.get("block_schedule")
+            want_n = N_FULL if sched else BACKBONE_N
+            assert ravel.shapes == [(P_FULL, want_n)] * rounds, ravel.shapes
+            for rnd, committed, before, after in recorder.calls:
+                active = sched.active(rnd) if sched else ("backbone",)
+                for blk in ("conv", "head"):
+                    if {"conv": "backbone", "head": "head"}[blk] in active:
+                        continue
+                    for a, b in zip(tree_flatten(before[blk])[0],
+                                    tree_flatten(after[blk])[0]):
+                        assert same_bits(a, b), (label, rnd, blk)
+            metas = [json.loads(tx.metadata)
+                     for tx in fed.overlay.registry.chain
+                     if tx.kind == "rolling_update"]
+            assert all("blocks" in m for m in metas), metas
+            ev = fed.per_institution_eval()
+            assert ev["loss"].shape == (P_FULL,)
+            assert np.isfinite(ev["loss"]).all(), ev
+            extra = (f" | ravel {ravel.shapes[0]} | per-institution eval "
+                     f"loss {np.round(ev['loss'], 3).tolist()}")
+        else:
+            assert sum(counts.values()) == 0, (label, counts)
+        print(f"merge path {label}"
+              + (f" (group {group})" if group else "")
+              + f": {ms:.2f} ms/round | committed "
+              f"{sum(t.committed for t in trs)}/{rounds} | loss "
+              f"{[round(float(v), 4) for v in metrics['loss'].mean(dim=1)]}"
+              f" | launches {counts}{extra}")
+        print(f"  {profiled_round(fed, ms)}")
+        del fed, recorder
+
+
+def fleet_main_path(dev, kernels, fed_kwargs, totals_wide):
+    """A fleet at full width: FLEET_P = 32 hospitals, width 1.0, 64x64,
+    `ProtocolParams.for_fleet(32)`, FLEET_ROUNDS rounds of secure_mean in
+    each mode.  At least one round commits; each round launches the P >
+    16 kernels of its mode once (asserted on `launches_wide`); after each
+    committed round the institutions lie within 1e-3 of their mean (float
+    and int); an aborted round hands back every row bit-untouched."""
+    from repro_torch.chaos.harness import CNNFederation
+    from repro_torch.core import ProtocolParams
+    for mode in MODES:
+        fed = CNNFederation(None, 0, n_institutions=FLEET_P, local_steps=2,
+                            batch=8, image_size=64, width_scale=1.0,
+                            device=dev,
+                            consensus_params=ProtocolParams.for_fleet(
+                                FLEET_P),
+                            **fed_kwargs(mode))
+        recorder = MergeRecorder(fed.overlay)
+        for k in kernels.values():
+            k["wrapper"].launches = k["wrapper"].launches_wide = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, trs = fed.run_rounds(FLEET_ROUNDS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FLEET_ROUNDS
+        wide = {n: k["wrapper"].launches_wide for n, k in kernels.items()}
+        narrow = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n in wide:
+            totals_wide[n] += wide[n]
+        want = {"float": ("masked_rolling_update",),
+                "int": ("masked_field_wsum",),
+                "dp": ("masked_rolling_update", "clip_noise")}[mode]
+        for n in kernels:
+            assert wide[n] == (FLEET_ROUNDS if n in want else 0), (mode,
+                                                                   wide)
+        assert sum(narrow.values()) == 0, narrow
+        assert any(t.committed for t in trs), "no fleet round committed"
+        assert recorder.aborted == sum(not t.committed for t in trs)
+        divs = [fed.overlay.divergence(out)
+                for _, committed, _, out in recorder.calls if committed]
+        if mode != "dp":
+            assert max(divs) < 1e-3, divs
+        assert bool(torch.isfinite(metrics["loss"]).all()) or mode == "dp"
+        assert fed.overlay.registry.verify_log()
+        print(f"fleet path P={FLEET_P} {mode}: {ms:.2f} ms/round | "
+              f"committed {[t.committed for t in trs]} (aborted rounds "
+              f"untouched: {recorder.aborted}) | divergence after the "
+              f"committed rounds {max(divs):.3g} | loss "
+              f"{[round(float(v), 4) for v in metrics['loss'].mean(dim=1)]}"
+              f" | P > 16 launches {wide}")
+        print(f"  {profiled_round(fed, ms)}")
+        del fed, recorder
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1791,6 +2185,7 @@ def main() -> int:
     # ---- each kernel against its plain version -----------------------
     kernels = secure_agg_kernels(dev)
     check_secure_agg(kernels, dev)
+    check_secure_agg_wide(kernels, dev)
     legacy = legacy_kernels()
     check_legacy(dev, legacy)
     flash_err = check_flash(dev)
@@ -1804,6 +2199,7 @@ def main() -> int:
                     if mode == "dp" else None)
     cnn_card_vs_cpu(dev, fed_kwargs)
     fault_card_vs_cpu(dev)
+    merge_card_vs_cpu(dev)
     for arch, _, _ in LM_PATHS:
         lm_card_vs_cpu(dev, arch)
     for cfg in (TINY_SERVE, TINY_SERVE_SSM):
@@ -1814,9 +2210,13 @@ def main() -> int:
     wrappers = [k["wrapper"] for k in kernels.values()] + list(
         lm_kernels.values())
     totals = {name: 0 for name in kernels}
+    totals_wide = {name: 0 for name in kernels}
     cnn_main_path(dev, kernels, fed_kwargs, totals)
     fault_main_path(dev, kernels, fed_kwargs, totals)
-    for name, n in totals.items():
+    merges_main_path(dev, kernels, totals)
+    fleet_main_path(dev, kernels, fed_kwargs, totals_wide)
+    for name, n in list(totals.items()) + [
+            (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"
     legacy_launches = legacy_main_path(
         dev, legacy, [kernels[n]["wrapper"] for n in
@@ -1826,6 +2226,7 @@ def main() -> int:
 
     # ---- timing at the main paths' shapes ----------------------------
     rows = time_secure_agg(dev, kernels, totals)
+    rows += time_secure_agg_wide(dev, kernels, totals_wide)
     rows += time_legacy(dev, legacy, legacy_launches)
     timed = {"flash_attention_bhsd": time_flash(dev)}
     for name, prefill, decode in (("wkv6_bthd", WKV6_TIMED, WKV6_DECODE),

@@ -41,19 +41,31 @@ class CNNFederation:
     `device`: None means ``cuda`` and raises without a CUDA device.
     `secure_domain`: "float" or "int" secure_mean arithmetic.
     `schedule`: a `chaos.FaultSchedule` (None: every institution survives
-    every round).  `dp`: a `privacy.DPConfig`.  `attack_schedule`: a
-    `chaos.ByzantineSchedule`; model poisoning runs inside the overlay,
-    and a ``label_flip`` schedule poisons the attacker institutions'
-    dataset labels here instead (statically, so it takes no start/stop
-    window).  `mesh` is not ported yet and must be None."""
+    every round).  `consensus_params`: a `ProtocolParams`; federations of
+    P >= 16 pass ``ProtocolParams.for_fleet(P)``, under which their rounds
+    can commit.  `merge`: any registered strategy; `trim_fraction` and
+    `norm_gate_factor` tune the robust ones.  `dp`: a `privacy.DPConfig`.
+    `attack_schedule`: a `chaos.ByzantineSchedule`; model poisoning runs
+    inside the overlay, and a ``label_flip`` schedule poisons the attacker
+    institutions' dataset labels here instead (statically, so it takes no
+    start/stop window).  With ``merge="partial"``, `block_spec`,
+    `merge_blocks`, `block_schedule` and `inner_merge` go to the overlay:
+    ``block_spec=BlockSpec.by_prefix(backbone="conv", head="head")`` with
+    ``merge_blocks=("backbone",)`` federates the conv stack while each
+    hospital keeps a personal head.  `mesh` is not ported yet and must be
+    None."""
 
     def __init__(self, schedule=None, seed: int = 0, *,
                  n_institutions: int = 5, local_steps: int = 2,
                  batch: int = 8, image_size: int = 16,
                  width_scale: float = 0.25, lr: float = 0.05,
                  mesh=None, dirichlet_alpha: Optional[float] = None,
-                 merge: str = "secure_mean",
+                 consensus_params=None, merge: str = "secure_mean",
                  dp=None, attack_schedule=None,
+                 trim_fraction: float = 0.25,
+                 norm_gate_factor: Optional[float] = 3.0,
+                 block_spec=None, merge_blocks=None, block_schedule=None,
+                 inner_merge: str = "mean",
                  secure_domain: str = "float", stacked=None,
                  device=None):
         if mesh is not None:
@@ -103,8 +115,12 @@ class CNNFederation:
         self.stacked = tree_map(lambda x: x.to(self.device), stacked)
         self.overlay = DecentralizedOverlay(OverlayConfig(
             n_institutions=P, local_steps=local_steps, merge=merge,
-            alpha=1.0, consensus_seed=seed, fault_schedule=schedule, dp=dp,
-            attack_schedule=attack_schedule, secure_domain=secure_domain,
+            alpha=1.0, consensus_seed=seed, fault_schedule=schedule,
+            consensus_params=consensus_params, dp=dp,
+            attack_schedule=attack_schedule, trim_fraction=trim_fraction,
+            norm_gate_factor=norm_gate_factor, secure_domain=secure_domain,
+            block_spec=block_spec, merge_blocks=merge_blocks,
+            block_schedule=block_schedule, inner_merge=inner_merge,
             arch_family="cnn"),
             registry=ModelRegistry(logical_clock=True))
 
@@ -140,6 +156,20 @@ class CNNFederation:
         self.stacked, metrics, trs = self.overlay.run_rounds(
             self.stacked, (imgs, labels), self.local_step, keys, n_rounds)
         return metrics, trs
+
+    def per_institution_eval(self, batch: int = 64, seed: int = 0) -> Dict:
+        """Each institution's own replica on its own held-aside batch: row
+        i of the stacked params on institution i's `eval_batch` draw, the
+        quantity a personal head should improve.  ``{"loss": (P,), "acc":
+        (P,)}`` numpy arrays."""
+        imgs, labels = self.ds.eval_batches(batch, seed=seed)
+        cfg = self.cfg
+        with torch.no_grad(), cnn.full_fp32():
+            loss, acc = torch.func.vmap(
+                lambda p, x, y: cnn.loss_fn(cfg, p, x, y))(
+                self.stacked, torch.from_numpy(imgs).to(self.device),
+                torch.from_numpy(labels).to(self.device))
+        return {"loss": loss.cpu().numpy(), "acc": acc.cpu().numpy()}
 
     def chain_digest(self) -> str:
         """Digest of the ledger head."""

@@ -3,8 +3,23 @@
   overlay.py     DecentralizedOverlay: local training + consensus-gated
                  merges (eager `round()` + batched `run_rounds()`)
   merges/        pluggable merge engine: protocol, registry, toolkit,
-                 mean | secure_mean
+                 mean | ring | hierarchical | quantized | secure_mean,
+                 the robust merges and the partial merge
   consensus.py   Paxos 3-phase-commit simulator + ConsensusGate
   secure_agg.py  additive-mask MPC aggregation (uses kernels/secure_agg)
   registry.py    permissioned-DLT model registry over merkle.py
 """
+from repro_torch.core.consensus import (
+    ConsensusGate, PaxosSimulator, ProtocolParams, measure,
+)
+from repro_torch.core.merges import (
+    BlockSchedule, BlockSpec, MergeContext, MergeStrategy, available_merges,
+    get_merge, gossip_shift, register_merge,
+)
+from repro_torch.core.overlay import (
+    DecentralizedOverlay, OverlayConfig, replicate_params, stack_params,
+    unstack_params,
+)
+from repro_torch.core.registry import (
+    ModelRegistry, RoundRecord, fingerprint_pytree,
+)

@@ -39,6 +39,21 @@ class ProtocolParams:
     queue_factor: float = 0.05       # coordinator relay congestion ~ (n-2)^2
     failure_detect_timeout_s: float = 0.5   # per dead peer, paid once
 
+    @classmethod
+    def for_fleet(cls, n_institutions: int) -> "ProtocolParams":
+        """Constants for federations of P >= ~16.  Under the defaults each
+        acceptor re-votes with probability 0.20, so an instance commits
+        with probability (1 - rate)^(P-1), which vanishes at large P.  A
+        fleet batches votes through the leader, which keeps the expected
+        conflicts a round constant in P: the per-acceptor rate scales as
+        0.8 / P (capped at 0.20), so (1 - c/P)^(P-1) -> e^-c, and
+        `conflict_growth` is 0.  This is another protocol model, not the
+        paper's testbed (for_fleet(5) draws at 0.16, not 0.20); the
+        latency terms, the (n-2)^2 coordinator queueing above all, are
+        unchanged."""
+        n = max(n_institutions, 2)
+        return cls(conflict_rate=min(0.20, 0.8 / n), conflict_growth=0.0)
+
 
 def _institution_latencies(n: int, rng: np.random.Generator,
                            params: ProtocolParams) -> np.ndarray:
@@ -225,6 +240,46 @@ class PaxosSimulator:
         tr.committed = committed
         return tr
 
+    def run_initialization(self,
+                           include_join_wait: bool = False) -> Transcript:
+        """Network bootstrap: institutions join one by one, and every join
+        triggers a leader election among the current members.  The time is
+        the elections' overhead; the fixed join spacing is added only when
+        asked for."""
+        tr = Transcript(n_institutions=self.n)
+        t = 0.0
+        full_lat = self.latencies
+        for m in range(2, self.n + 1):
+            self.latencies = full_lat[:m]
+            saved_n, self.n = self.n, m
+            dt, rounds = self._phase(self.params.election_conflict_rate)
+            self.n = saved_n
+            t += dt
+            tr.rounds_total += rounds
+            tr.phases.append({"phase": f"election@{m}", "elapsed_s": dt,
+                              "rounds": rounds})
+            if include_join_wait:
+                t += self.params.join_interval_s
+        self.latencies = full_lat
+        tr.elapsed_s = t
+        tr.committed = True
+        return tr
+
+
+def measure(kind: str, n_institutions: int, n_runs: int = 10, seed: int = 0,
+            params: Optional[ProtocolParams] = None):
+    """The mean and standard deviation of `n_runs` instances' elapsed
+    seconds, `kind` "consensus" or "initialization" (paper §5.2)."""
+    times = []
+    for r in range(n_runs):
+        sim = PaxosSimulator(n_institutions, seed=seed * 1000 + r,
+                             params=params)
+        tr = (sim.run_consensus() if kind == "consensus"
+              else sim.run_initialization())
+        times.append(tr.elapsed_s)
+    arr = np.asarray(times)
+    return float(arr.mean()), float(arr.std())
+
 
 class ConsensusGate:
     """Bridges the protocol simulation to the round loop: each round runs
@@ -244,6 +299,22 @@ class ConsensusGate:
         tr = sim.run_consensus(faults=faults)
         self.history.append(tr)
         return tr
+
+    def fast_forward(self, n_instances: int,
+                     faults_for=None) -> List[Transcript]:
+        """Replay `n_instances` instances without acting on them: each is a
+        pure function of seed x instance index x faults, so a restored
+        overlay re-derives the gate state it had, and its next instance
+        equals the uninterrupted run's.  `faults_for` maps an instance
+        index to its faults (None: fault-free)."""
+        if n_instances < 0:
+            raise ValueError("cannot fast-forward backwards")
+        out = []
+        for _ in range(n_instances):
+            faults = (faults_for(len(self.history))
+                      if faults_for is not None else None)
+            out.append(self.next_round(faults=faults))
+        return out
 
     @property
     def total_consensus_time_s(self) -> float:

@@ -32,17 +32,45 @@ class MergeContext:
     round_index     overlay round number
     key             per-round threefry key (secure_mean derives the MPC
                     round seed from it)
+    group_size      hierarchical-merge group width
+    shift           the round's gossip ring shift (`gossip_shift`), set by
+                    the overlay so both engines cycle the ring alike
     n_institutions  P
+    trim_fraction   the trimmed mean's share of rows dropped from EACH end
+                    of the sorted institution axis; small enough that no
+                    row is dropped, it is the plain mean
+    norm_gate_factor  the norm-gated mean rejects rows whose update norm
+                    exceeds this multiple of the survivors' median norm;
+                    None or inf never gates
     domain          secure-aggregation arithmetic domain: "float" (pads
                     cancel to fp32 rounding) or "int" (exact Z_2^32 pads)
+    block_spec      optional `merges.partial.BlockSpec`: the named
+                    partition of the param tree the ``partial`` merge
+                    splits on; None makes it delegate to its inner merge
+    blocks          the selected block names the partial merge federates;
+                    None selects every block of the spec
+    inner_merge     registry name of the strategy the partial merge runs
+                    on the selected leaves (never "partial")
+    block_mask      optional (n_blocks,) bool row over
+                    ``block_spec.block_names``, the round's block schedule:
+                    a selected block whose bit is off keeps its local
+                    params this round; None merges every selected block
     """
     commit: Any = True
     mask: Optional[Any] = None
     alpha: float = 1.0
     round_index: int = 0
     key: Optional[Any] = None
+    group_size: int = 2
+    shift: Any = 1
     n_institutions: Optional[int] = None
+    trim_fraction: float = 0.25
+    norm_gate_factor: Optional[float] = 3.0
     domain: str = "float"
+    block_spec: Optional[Any] = None
+    blocks: Optional[Tuple[str, ...]] = None
+    inner_merge: str = "mean"
+    block_mask: Optional[Any] = None
 
 
 @runtime_checkable
@@ -50,6 +78,13 @@ class MergeStrategy(Protocol):
     def merge(self, stacked: Pytree, ctx: MergeContext) -> Pytree:
         """Return the merged stacked tree (same structure/shapes/dtypes)."""
         ...
+
+
+def gossip_shift(round_index: int, n_institutions: int) -> int:
+    """The overlay's gossip schedule: the ring shift of `round_index`,
+    cycling 1, 2, ..., P-1, 1, ... so that repeated ring hops visit every
+    neighbour; P = 2 always talks to its one peer."""
+    return 1 + round_index % max(n_institutions - 1, 1)
 
 
 @dataclasses.dataclass(frozen=True)

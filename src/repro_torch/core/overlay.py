@@ -12,10 +12,13 @@ Each round:
      institutions publish poisoned rows (`chaos.attacks`);
   4. a Paxos 3-phase instance (`ConsensusGate`) decides whether the round
      commits;
-  5. the registered merge strategy (``secure_mean``: the fused MPC kernel)
-     merges the published rows, gated by the commit bit;
+  5. the registered merge strategy (``secure_mean``: the fused MPC kernel;
+     or mean, ring, hierarchical, quantized, the robust merges, or
+     ``partial`` over any of them) merges the published rows, gated by
+     the commit bit;
   6. the DLT registers every survivor's published fingerprint and the
-     merged model with its provenance.
+     merged model with its provenance (a partial merge's ledger attests
+     only the shared blocks).
 
 Fault tolerance: with ``OverlayConfig.fault_schedule`` every round derives
 a deterministic `chaos.RoundFaults` record for its index.  The consensus
@@ -47,8 +50,10 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.chaos.attacks import ATTACK_KINDS, apply_attack
-from repro_torch.core.consensus import ConsensusGate, Transcript
-from repro_torch.core.merges import MergeContext, get_merge
+from repro_torch.core.consensus import (
+    ConsensusGate, ProtocolParams, Transcript,
+)
+from repro_torch.core.merges import MergeContext, get_merge, gossip_shift
 from repro_torch.core.merges.toolkit import gate as _commit_gate
 from repro_torch.core.registry import ModelRegistry, RoundRecord
 from repro_torch.core.secure_agg import seed_from_key
@@ -66,18 +71,44 @@ class OverlayConfig:
     local_steps: int = 10          # steps between gossip rounds
     merge: str = "secure_mean"     # any name in core.merges.available_merges()
     alpha: float = 1.0             # rolling-update blend
+    group_size: int = 2            # hierarchical merge group
     consensus_seed: int = 0
     arch_family: str = "cnn"
+    consensus_params: Optional[ProtocolParams] = None
+    # ProtocolParams.for_fleet(P) lets federations of P >= 16 commit
     fault_schedule: Optional[Any] = None    # repro_torch.chaos.FaultSchedule
     dp: Optional[Any] = None                # repro_torch.privacy.DPConfig
     attack_schedule: Optional[Any] = None   # chaos.ByzantineSchedule
+    trim_fraction: float = 0.25             # trimmed_mean per-side trim
+    norm_gate_factor: Optional[float] = 3.0  # norm_gated_mean threshold
     secure_domain: str = "float"   # secure_mean arithmetic: "float" fp32
                                    # pads, or "int" exact Z_2^32 pads
+    block_spec: Optional[Any] = None
+    # merges.partial.BlockSpec: the named partition of the param tree for
+    # merge="partial"; None makes "partial" delegate to `inner_merge`.
+    merge_blocks: Optional[Tuple[str, ...]] = None
+    # The shared blocks the partial merge federates; every other block is
+    # personal: it never merges and never enters a ledger fingerprint.
+    # None = all of the spec's blocks.
+    block_schedule: Optional[Any] = None
+    # merges.partial.BlockSchedule: a per-round rotation over the shared
+    # blocks.
+    inner_merge: str = "mean"      # what "partial" runs on the shared blocks
     merge_subtree: Optional[str] = "params"
     # Only the MODEL is federated: when the stacked tree is a dict holding
     # this key, the reference merges that subtree alone.  That mode (model
     # plus optimizer state) is not ported yet and raises; bare param trees
     # (this key absent, or None) are merged whole.
+
+
+def stack_params(param_list: List[Pytree]) -> Pytree:
+    """P param trees -> one tree of (P, ...) leaves."""
+    return tree_map(lambda *xs: torch.stack(xs), *param_list)
+
+
+def unstack_params(stacked: Pytree, n: int) -> List[Pytree]:
+    """The first `n` institutions' param trees of a stacked tree."""
+    return [tree_map(lambda x: x[i], stacked) for i in range(n)]
 
 
 def replicate_params(params: Pytree, n: int,
@@ -159,6 +190,34 @@ class DecentralizedOverlay:
     def __init__(self, cfg: OverlayConfig,
                  registry: Optional[ModelRegistry] = None):
         get_merge(cfg.merge)   # fail fast on unknown strategy names
+        if cfg.merge == "partial":
+            if cfg.inner_merge == "partial":
+                raise ValueError("inner_merge cannot be 'partial' (the "
+                                 "partial meta-merge does not nest)")
+            get_merge(cfg.inner_merge)
+            if cfg.block_spec is None:
+                if cfg.merge_blocks is not None or \
+                        cfg.block_schedule is not None:
+                    raise ValueError(
+                        "merge_blocks/block_schedule need a block_spec "
+                        "naming the blocks they select")
+            else:
+                selected = (cfg.block_spec.block_names
+                            if cfg.merge_blocks is None
+                            else cfg.block_spec.validate_blocks(
+                                cfg.merge_blocks))
+                if cfg.block_schedule is not None:
+                    stray = [b for g in cfg.block_schedule.groups
+                             for b in g if b not in selected]
+                    if stray:
+                        raise ValueError(
+                            f"block_schedule names blocks {stray} outside "
+                            f"the merged selection {tuple(selected)}")
+        elif (cfg.block_spec is not None or cfg.merge_blocks is not None
+              or cfg.block_schedule is not None):
+            raise ValueError(
+                f"block_spec/merge_blocks/block_schedule require "
+                f"merge='partial'; got merge={cfg.merge!r}")
         if cfg.secure_domain not in ("float", "int"):
             raise ValueError(f"unknown secure_domain "
                              f"{cfg.secure_domain!r}; valid domains: "
@@ -169,7 +228,8 @@ class DecentralizedOverlay:
                              f"{cfg.attack_schedule.kind!r}")
         self.cfg = cfg
         self.registry = registry or ModelRegistry()
-        self.gate = ConsensusGate(cfg.n_institutions, seed=cfg.consensus_seed)
+        self.gate = ConsensusGate(cfg.n_institutions, seed=cfg.consensus_seed,
+                                  params=cfg.consensus_params)
         self.accountant = (RDPAccountant(cfg.dp.noise_multiplier)
                            if cfg.dp is not None else None)
         self.round_index = 0
@@ -226,12 +286,60 @@ class DecentralizedOverlay:
         return (att, np.float32(getattr(sched, "scale", 1.0)),
                 [int(i) for i in np.flatnonzero(att)])
 
+    @property
+    def _merge_blocks(self) -> Optional[Tuple[str, ...]]:
+        mb = self.cfg.merge_blocks
+        return None if mb is None else tuple(mb)
+
+    def _block_mask_row(self, round_index: int):
+        """The round's (n_blocks,) bool block-schedule row, or None when
+        no schedule is attached; both engines take it from here."""
+        sched = self.cfg.block_schedule
+        if sched is None or self.cfg.block_spec is None:
+            return None
+        return sched.mask_row(self.cfg.block_spec, round_index)
+
+    def _attestation(self, round_index: int, tree):
+        """How a round's DLT writes see the param tree: ``(view_fn,
+        merge_label, blocks_meta)``.  Personal blocks never enter a
+        fingerprint, so a partial federation registers `select_tree`
+        views.  A selection that covers the whole tree with no schedule
+        behaves exactly like its inner merge and attests exactly like it
+        (its label, whole-tree fingerprints, no "blocks"), so its chain
+        digest equals the inner merge's."""
+        cfg = self.cfg
+        if cfg.merge != "partial":
+            return (lambda t: t), cfg.merge, None
+        if cfg.block_spec is None:
+            return (lambda t: t), cfg.inner_merge, None
+        spec = cfg.block_spec
+        selected = self._merge_blocks or spec.block_names
+        if cfg.block_schedule is None:
+            if spec.covers(tree, selected):
+                return (lambda t: t), cfg.inner_merge, None
+            merged_now = tuple(selected)
+        else:
+            merged_now = tuple(b for b in cfg.block_schedule
+                               .active(round_index) if b in selected)
+        blocks_meta = {"inner": cfg.inner_merge,
+                       "shared": list(selected),
+                       "merged": list(merged_now)}
+        return (lambda t: spec.select_tree(t, selected)), "partial", \
+            blocks_meta
+
     def _merge_context(self, round_index: int, commit, key,
                        mask=None) -> MergeContext:
-        return MergeContext(commit=commit, mask=mask, alpha=self.cfg.alpha,
-                            round_index=round_index, key=key,
-                            n_institutions=self.cfg.n_institutions,
-                            domain=self.cfg.secure_domain)
+        cfg = self.cfg
+        return MergeContext(
+            commit=commit, mask=mask, alpha=cfg.alpha,
+            round_index=round_index, key=key, group_size=cfg.group_size,
+            shift=gossip_shift(round_index, cfg.n_institutions),
+            n_institutions=cfg.n_institutions,
+            trim_fraction=cfg.trim_fraction,
+            norm_gate_factor=cfg.norm_gate_factor,
+            domain=cfg.secure_domain, block_spec=cfg.block_spec,
+            blocks=self._merge_blocks, inner_merge=cfg.inner_merge,
+            block_mask=self._block_mask_row(round_index))
 
     def _merge(self, stacked: Pytree, key, committed: bool,
                ref: Optional[Pytree], round_index: int, part,
@@ -265,10 +373,13 @@ class DecentralizedOverlay:
         per publishing round (any round with survivors: rows are
         registered before the vote, so even an aborted round released
         them), here, in round order."""
-        regs = [(f"hospital-{i}", tree_map(lambda x: x[i], host_stacked),
+        view, merge_label, blocks_meta = self._attestation(round_index,
+                                                           host_stacked)
+        regs = [(f"hospital-{i}",
+                 view(tree_map(lambda x: x[i], host_stacked)),
                  {"round": round_index, "consensus_s": tr.elapsed_s})
                 for i in survivors]
-        merged_metadata = {"round": round_index, "merge": self.cfg.merge,
+        merged_metadata = {"round": round_index, "merge": merge_label,
                            "committed": bool(tr.committed),
                            "survivors": survivors,
                            "leader": tr.leader,
@@ -291,8 +402,9 @@ class DecentralizedOverlay:
         return RoundRecord(arch_family=self.cfg.arch_family,
                            registrations=regs,
                            merged_institution="overlay",
-                           merged_params=host_merged_row,
-                           merged_metadata=merged_metadata)
+                           merged_params=view(host_merged_row),
+                           merged_metadata=merged_metadata,
+                           blocks=blocks_meta)
 
     def _flush(self, rounds) -> None:
         """One DLT flush for (transcript, survivors, published rows, merged

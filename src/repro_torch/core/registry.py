@@ -69,12 +69,19 @@ class Transaction:
 class RoundRecord:
     """One overlay round's DLT writes for `register_round_batch`: the
     survivors' registrations (institution order), then the merged model's
-    rolling_update whose parents are exactly those fingerprints."""
+    rolling_update whose parents are exactly those fingerprints.
+
+    `blocks`: a partial merge's attestation, e.g. ``{"inner": "mean",
+    "shared": ["backbone"], "merged": ["backbone"]}``, written into the
+    merged transaction's metadata as ``"blocks"``; the params are then
+    shared views, so no personal block reaches a fingerprint.  None: the
+    round federated the whole tree and nothing extra is written."""
     arch_family: str
     registrations: Sequence[tuple]        # (institution, params, metadata)
     merged_institution: str
     merged_params: Any
     merged_metadata: Dict[str, Any]
+    blocks: Optional[Dict[str, Any]] = None
 
 
 class ModelRegistry:
@@ -124,6 +131,8 @@ class ModelRegistry:
                                    metadata=meta)
                 parents.append(tx.model_fingerprint)
             merged_meta = dict(rec.merged_metadata)
+            if rec.blocks is not None:
+                merged_meta["blocks"] = rec.blocks
             merged_meta["ledger_root"] = self.merkle_root()
             merged_txs.append(self.register(
                 kind="rolling_update", institution=rec.merged_institution,

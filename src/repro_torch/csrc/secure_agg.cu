@@ -16,6 +16,11 @@
 //       repro/kernels/dp/kernel.py:clip_noise_flat (_clip_noise_kernel):
 //       per-row L2 clip + Box-Muller Gaussian noise.
 //
+// Those three hold P <= 16 rows in registers.  Past 16 rows the same C
+// entry points launch plainer kernels of the same three functions
+// (masked_rolling_update_wide_kernel, masked_field_wsum_wide_kernel,
+// clip_noise_wide_kernel; the section "The fused kernels at P > 16").
+//
 // and the legacy two-stage round's two aggregates of pre-masked shares
 // (the explicit-dataflow oracle the fused round was built against; see
 // the section "Legacy two-stage round" below for their notes).
@@ -152,7 +157,9 @@ __host__ __device__ __forceinline__ uint32_t stream_key(uint32_t seed,
 }
 
 // A stream key in split form: its half of mix32's first xor-shift.
-inline uint32_t split_key(uint32_t key) { return key ^ (key >> 16); }
+__host__ __device__ __forceinline__ uint32_t split_key(uint32_t key) {
+  return key ^ (key >> 16);
+}
 
 // ---------------------------------------------------------------------
 // The fused MPC round (the design notes at the top of this file).
@@ -377,6 +384,152 @@ inline unsigned blocks_for(int64_t n) {
 }
 
 // ---------------------------------------------------------------------
+// The fused kernels at P > 16.
+//
+// The kernels above keep a column's P rows, the launch's keys (by value)
+// and the alive bits (one warp ballot) in registers, so they stop at P =
+// kMaxRows.  Past it the entry points launch these, which compute the
+// same three functions through the same split hash, one column a thread
+// and kAggThreads threads a block, in a plainer form:
+//   - the keys live in a device workspace that the wrapper allocates:
+//     wide_keys_kernel writes them before the main launch (the P(P-1)/2
+//     pair keys, or the DP streams' P + P row keys), each in split form.
+//     A warp reads one key at one address, a broadcast from L1;
+//   - rows are looped, not unrolled, and row p's participation is read
+//     from mask[p] where it is needed, so any P is covered;
+//   - each row sums its own pads over its alive partners (+ as a pair's
+//     i, - as its j), as each institution computes its own share: no
+//     per-row accumulator is held, and each pair's word is hashed twice,
+//     once by each member.
+// The float net is summed exactly in int64 (|net| < P 2^23) and converted
+// once, the survivors' shares summed in row order 0..P-1 and the blend
+// rounded after each operation: masked_rolling_update_kernel_order's
+// arithmetic, as in the P <= 16 kernel.  The int kernel's wrapping sum
+// is the same in any order.  The DP kernel computes a row's factor for
+// each column (the same IEEE division as once a row) and its noise as the
+// P <= 16 kernel does; dead rows are copied.
+//
+// Bound: at P = 32 and N = 109,634 the float kernel's function is bound
+// by its integer operations (496 pairs x 7 a word, 0.02 ms) and at P = 128
+// more so (8,128 pairs, 0.31 ms; the bytes take 8 and 34 us); the int and
+// DP kernels by bytes.  The pairs' words are hashed twice here, so the
+// float and int kernels do twice the float kernel's least integer work
+// (chip_smoke.py:op_counts).  Right first; PERF.md has their times.
+
+// keys[k] = split_key(stream_key(seed, k)) for k < count.
+__global__ void __launch_bounds__(kThreads)
+wide_keys_kernel(uint32_t seed, int64_t count, uint32_t* __restrict__ keys) {
+  const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (k < count) keys[k] = split_key(stream_key(seed, (uint32_t)k));
+}
+
+void launch_wide_keys(uint32_t seed, int64_t count, uint32_t* keys,
+                      cudaStream_t s) {
+  wide_keys_kernel<<<blocks_for(count), kThreads, 0, s>>>(seed, count, keys);
+}
+
+__device__ __forceinline__ bool row_alive(const float* mask, int p) {
+  return mask == nullptr || mask[p] > 0.0f;
+}
+
+// The stream index of pair (i, j), i < j, of P rows (lexicographic).
+__device__ __forceinline__ int64_t wide_pair_index(int64_t P, int64_t i,
+                                                   int64_t j) {
+  return i * (2 * P - i - 1) / 2 + (j - i - 1);
+}
+
+// Pair (p, q)'s pad word, q != p, at split counter c.
+__device__ __forceinline__ uint32_t wide_pad_word(const uint32_t* keys,
+                                                  int P, int p, int q,
+                                                  uint32_t c) {
+  return mix32_tail(keys[wide_pair_index(P, min(p, q), max(p, q))] ^ c);
+}
+
+__global__ void __launch_bounds__(kAggThreads)
+masked_rolling_update_wide_kernel(const float* __restrict__ u,
+                                  float* __restrict__ out,
+                                  const float* __restrict__ mask, int P,
+                                  int64_t n,
+                                  const uint32_t* __restrict__ keys,
+                                  float alpha) {
+  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
+  if (g >= n) return;
+  const uint32_t c = split_counter((uint32_t)g);
+  int count = 0;
+  float total = 0.0f;
+  for (int p = 0; p < P; ++p) {
+    if (!row_alive(mask, p)) continue;
+    ++count;
+    // the net pad in units of 2^-23: sign ((bits >> 8) - 2^23) a partner
+    int64_t net = 0;
+    for (int q = 0; q < P; ++q) {
+      if (q == p || !row_alive(mask, q)) continue;
+      const int64_t v =
+          (int64_t)(wide_pad_word(keys, P, p, q, c) >> 8) - (1 << 23);
+      net += p < q ? v : -v;
+    }
+    total += u[p * n + g] + (float)net * kU23;
+  }
+  const float agg = total / fmaxf((float)count, 1.0f);
+  for (int p = 0; p < P; ++p) {
+    const float x = u[p * n + g];
+    out[p * n + g] = row_alive(mask, p) ? x + alpha * (agg - x) : x;
+  }
+}
+
+__global__ void __launch_bounds__(kAggThreads)
+masked_field_wsum_wide_kernel(const float* __restrict__ u,
+                              uint32_t* __restrict__ out,
+                              const float* __restrict__ mask, int P,
+                              int64_t n, const uint32_t* __restrict__ keys,
+                              float scale) {
+  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
+  if (g >= n) return;
+  const uint32_t c = split_counter((uint32_t)g);
+  uint32_t sum = 0;
+  for (int p = 0; p < P; ++p) {
+    if (!row_alive(mask, p)) continue;
+    // row p's share: its encode +/- its alive pairs' words, wrapping
+    uint32_t share = encode_rn(u[p * n + g], scale);
+    for (int q = 0; q < P; ++q) {
+      if (q == p || !row_alive(mask, q)) continue;
+      const uint32_t w = wide_pad_word(keys, P, p, q, c);
+      share += p < q ? w : 0u - w;
+    }
+    sum += share;
+  }
+  out[g] = sum;
+}
+
+// keys[0..P): stream A's row keys, keys[P..2P): stream B's.
+__global__ void __launch_bounds__(kAggThreads)
+clip_noise_wide_kernel(const float* __restrict__ u, float* __restrict__ out,
+                       const float* __restrict__ norms,
+                       const float* __restrict__ mask, int P, int64_t n,
+                       const uint32_t* __restrict__ keys, float clip,
+                       float sigma) {
+  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
+  if (g >= n) return;
+  const uint32_t c = split_counter((uint32_t)g);
+  const float noise_scale = sigma * clip;
+  for (int p = 0; p < P; ++p) {
+    const float x = u[p * n + g];
+    if (!row_alive(mask, p)) {   // a dropped row passes through
+      out[p * n + g] = x;
+      continue;
+    }
+    const float factor = fminf(1.0f, clip / fmaxf(norms[p], 1e-12f));
+    const uint32_t b1 = mix32_tail(keys[p] ^ c);
+    const uint32_t b2 = mix32_tail(keys[P + p] ^ c);
+    const float u1 = (float)((b1 >> 8) + 1u) * kU24;  // (0, 1]
+    const float u2 = (float)(b2 >> 8) * kU24;         // [0, 1)
+    const float r = -2.0f * logf(u1);
+    const float z = sqrtf(r) * cosf(kTwoPi * u2);
+    out[p * n + g] = factor * x + noise_scale * z;
+  }
+}
+
+// ---------------------------------------------------------------------
 // Legacy two-stage round.
 //
 //   rolling_update_kernel  replaces the TPU kernel
@@ -524,11 +677,21 @@ int launch_rolling_update(const void* shares, const void* params, void* out,
 
 extern "C" {
 
+// `work`: at p > kMaxRows, a device workspace for the launch's keys,
+// p(p-1)/2 uint32 words (clip_noise_f32: 2p); unread otherwise.
 int masked_rolling_update_f32(const void* u, void* out, const void* mask,
                               int p, int64_t n, uint32_t seed, float alpha,
-                              void* stream) {
-  if (n <= 0 || p < 1 || p > kMaxRows) return (int)cudaErrorInvalidValue;
+                              void* work, void* stream) {
+  if (n <= 0 || p < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (p > kMaxRows) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    launch_wide_keys(seed, (int64_t)p * (p - 1) / 2, (uint32_t*)work, s);
+    masked_rolling_update_wide_kernel<<<agg_blocks(n), kAggThreads, 0, s>>>(
+        (const float*)u, (float*)out, (const float*)mask, p, n,
+        (const uint32_t*)work, alpha);
+    return (int)cudaGetLastError();
+  }
   const PairKeys keys = split_pair_keys(seed, p);
 #define LAUNCH(P)                                                        \
   masked_rolling_update_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>( \
@@ -539,10 +702,18 @@ int masked_rolling_update_f32(const void* u, void* out, const void* mask,
 }
 
 int masked_field_wsum_f32(const void* u, void* out, const void* mask, int p,
-                          int64_t n, uint32_t seed, float scale,
+                          int64_t n, uint32_t seed, float scale, void* work,
                           void* stream) {
-  if (n <= 0 || p < 1 || p > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || p < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (p > kMaxRows) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    launch_wide_keys(seed, (int64_t)p * (p - 1) / 2, (uint32_t*)work, s);
+    masked_field_wsum_wide_kernel<<<agg_blocks(n), kAggThreads, 0, s>>>(
+        (const float*)u, (uint32_t*)out, (const float*)mask, p, n,
+        (const uint32_t*)work, scale);
+    return (int)cudaGetLastError();
+  }
   const PairKeys keys = split_pair_keys(seed, p);
 #define LAUNCH(P)                                                        \
   masked_field_wsum_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>(     \
@@ -554,9 +725,19 @@ int masked_field_wsum_f32(const void* u, void* out, const void* mask, int p,
 
 int clip_noise_f32(const void* u, void* out, const void* norms,
                    const void* mask, int p, int64_t n, uint32_t seed,
-                   float clip, float sigma, void* stream) {
-  if (n <= 0 || p < 1 || p > kMaxRows) return (int)cudaErrorInvalidValue;
+                   float clip, float sigma, void* work, void* stream) {
+  if (n <= 0 || p < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (p > kMaxRows) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    uint32_t* keys = (uint32_t*)work;
+    launch_wide_keys(seed ^ kDpTagA, p, keys, s);
+    launch_wide_keys(seed ^ kDpTagB, p, keys + p, s);
+    clip_noise_wide_kernel<<<agg_blocks(n), kAggThreads, 0, s>>>(
+        (const float*)u, (float*)out, (const float*)norms,
+        (const float*)mask, p, n, keys, clip, sigma);
+    return (int)cudaGetLastError();
+  }
   const DpKeys keys = split_dp_keys(seed, p);
 #define LAUNCH(P)                                                        \
   clip_noise_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>(            \

@@ -138,3 +138,26 @@ class SyntheticGlendaDataset:
         rng = np.random.default_rng((seed, step, institution))
         idx = rng.integers(0, len(imgs), batch_size)
         return imgs[idx], labels[idx]
+
+    # the per-institution evaluation stream's tag: each hospital is scored
+    # on its own population, not on a pooled test set
+    _EVAL_STREAM = 0xE7A1
+
+    def eval_batch(self, batch_size: int, institution: int = 0,
+                   seed: int = 0):
+        """A held-aside batch from `institution`'s own data, from an RNG
+        stream apart from the training stream (`batch` keys on (seed,
+        step, institution), this on the eval tag), so evaluation never
+        replays a training draw."""
+        imgs, labels = self.institution_split(institution)
+        rng = np.random.default_rng((self._EVAL_STREAM, seed, institution))
+        idx = rng.integers(0, len(imgs), batch_size)
+        return imgs[idx], labels[idx]
+
+    def eval_batches(self, batch_size: int, seed: int = 0):
+        """(P, B, ...) images and (P, B) labels: row i is institution i's
+        own held-aside batch."""
+        per = [self.eval_batch(batch_size, i, seed)
+               for i in range(self.n_institutions)]
+        return (np.stack([b[0] for b in per]),
+                np.stack([b[1] for b in per]))

@@ -45,15 +45,16 @@ SOURCES = {
         # plain PyTorch version rounds
         ("-fmad=false",),
         {
-            # (u, out, mask, P, N, seed, alpha)
+            # (u, out, mask, P, N, seed, alpha, key workspace)
             "masked_rolling_update_f32": (_P, _P, _P, _I, _L,
-                                          ctypes.c_uint32, ctypes.c_float),
-            # (u, out, mask, P, N, seed, scale)
+                                          ctypes.c_uint32, ctypes.c_float,
+                                          _P),
+            # (u, out, mask, P, N, seed, scale, key workspace)
             "masked_field_wsum_f32": (_P, _P, _P, _I, _L, ctypes.c_uint32,
-                                      ctypes.c_float),
-            # (u, out, norms, mask, P, N, seed, clip, sigma)
+                                      ctypes.c_float, _P),
+            # (u, out, norms, mask, P, N, seed, clip, sigma, key workspace)
             "clip_noise_f32": (_P, _P, _P, _P, _I, _L, ctypes.c_uint32,
-                               ctypes.c_float, ctypes.c_float),
+                               ctypes.c_float, ctypes.c_float, _P),
             # (shares, params, out, P, N, alpha, params dtype code)
             "rolling_update_f32": (_P, _P, _P, _I, _L, ctypes.c_float, _I),
             # (shares, out, P, N)
@@ -207,23 +208,37 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_rows(x: torch.Tensor, what: str = "updates", max_rows: int = 16,
+# The fused kernels hold a column's rows in registers up to this P; past
+# it the same entry points launch their P > 16 kernels, which read the
+# launch's keys from a workspace (`wide_keys`).
+FUSED_MAX_ROWS = 16
+ANY_P = 2 ** 31 - 1
+
+
+def check_rows(x: torch.Tensor, what: str = "updates",
                dtype: torch.dtype = torch.float32):
-    """(P, N) contiguous CUDA rows of `dtype` with 1 <= P <= max_rows.
-    The fused kernels hold a column's P rows in registers (P <= 16); the
-    legacy kernels loop over any P (max_rows = 2^31 - 1)."""
+    """(P, N) contiguous CUDA rows of `dtype` with 1 <= P < 2^31."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} must be a CUDA tensor, got {x.device}")
     if x.dtype != dtype:
         raise ValueError(f"{what} must be {dtype}, got {x.dtype}")
-    if x.dim() != 2 or not 1 <= x.shape[0] <= max_rows:
-        raise ValueError(f"{what} must be (P, N) with 1 <= P <= {max_rows}, "
+    if x.dim() != 2 or not 1 <= x.shape[0] <= ANY_P:
+        raise ValueError(f"{what} must be (P, N) with 1 <= P <= {ANY_P}, "
                          f"got shape {tuple(x.shape)}")
     if x.shape[1] >= 2 ** 32:
         raise ValueError("the column counter is 32 bits: N < 2^32")
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     return x.shape
+
+
+def wide_keys(P: int, n_keys: int, device) -> torch.Tensor | None:
+    """The key workspace of a fused kernel's launch: `n_keys` uint32 words
+    on `device` when P > FUSED_MAX_ROWS, else None (the P <= 16 kernels
+    take their keys by value)."""
+    if P <= FUSED_MAX_ROWS:
+        return None
+    return torch.empty((n_keys,), dtype=torch.int32, device=device)
 
 
 def mask_arg(mask, P: int, device) -> torch.Tensor | None:

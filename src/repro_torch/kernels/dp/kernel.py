@@ -2,7 +2,8 @@
 (``csrc/secure_agg.cu:clip_noise_kernel``).
 
 CPU tensors get the plain PyTorch version; CUDA tensors launch the kernel
-or raise.  ``clip_noise_flat.launches`` counts the launches.
+or raise.  ``clip_noise_flat.launches`` counts the launches of the P <= 16
+kernel, ``clip_noise_flat.launches_wide`` those of the P > 16 one.
 """
 from __future__ import annotations
 
@@ -29,11 +30,16 @@ def clip_noise_flat(updates: torch.Tensor, row_norms: torch.Tensor,
     if N == 0:
         return out
     m = _cuda.mask_arg(mask, P, updates.device)
+    keys = _cuda.wide_keys(P, 2 * P, updates.device)
     _cuda.launch("clip_noise_f32", updates.device, updates.data_ptr(),
                  out.data_ptr(), norms.data_ptr(), _cuda.ptr(m), P, N,
-                 int(seed), float(clip), float(sigma))
-    clip_noise_flat.launches += 1
+                 int(seed), float(clip), float(sigma), _cuda.ptr(keys))
+    if keys is None:
+        clip_noise_flat.launches += 1
+    else:
+        clip_noise_flat.launches_wide += 1
     return out
 
 
 clip_noise_flat.launches = 0
+clip_noise_flat.launches_wide = 0

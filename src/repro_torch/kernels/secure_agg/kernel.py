@@ -6,7 +6,8 @@ A wrapper given CPU tensors computes its kernel's plain PyTorch version
 (`ref.py`): that is the CPU path the tests run.  Given CUDA tensors it
 launches the kernel or raises; there is no fallback.  Each wrapper counts
 its launches in its ``launches`` attribute, so a run can show that it went
-through the kernel.
+through the kernel; a fused wrapper counts the launches of its P > 16
+kernel in ``launches_wide``.
 """
 from __future__ import annotations
 
@@ -30,14 +31,19 @@ def masked_rolling_update_flat(updates: torch.Tensor, seed: int, alpha,
     if N == 0:
         return out
     m = _cuda.mask_arg(mask, P, updates.device)
+    keys = _cuda.wide_keys(P, P * (P - 1) // 2, updates.device)
     _cuda.launch("masked_rolling_update_f32", updates.device,
                  updates.data_ptr(), out.data_ptr(), _cuda.ptr(m), P, N,
-                 int(seed), float(alpha))
-    masked_rolling_update_flat.launches += 1
+                 int(seed), float(alpha), _cuda.ptr(keys))
+    if keys is None:
+        masked_rolling_update_flat.launches += 1
+    else:
+        masked_rolling_update_flat.launches_wide += 1
     return out
 
 
 masked_rolling_update_flat.launches = 0
+masked_rolling_update_flat.launches_wide = 0
 
 
 def masked_field_wsum_flat(updates: torch.Tensor, seed: int, mask=None, *,
@@ -54,19 +60,23 @@ def masked_field_wsum_flat(updates: torch.Tensor, seed: int, mask=None, *,
     if N == 0:
         return words
     m = _cuda.mask_arg(mask, P, updates.device)
+    keys = _cuda.wide_keys(P, P * (P - 1) // 2, updates.device)
     _cuda.launch("masked_field_wsum_f32", updates.device,
                  updates.data_ptr(), words.data_ptr(), _cuda.ptr(m), P, N,
-                 int(seed), float(2.0 ** frac_bits))
-    masked_field_wsum_flat.launches += 1
+                 int(seed), float(2.0 ** frac_bits), _cuda.ptr(keys))
+    if keys is None:
+        masked_field_wsum_flat.launches += 1
+    else:
+        masked_field_wsum_flat.launches_wide += 1
     return words
 
 
 masked_field_wsum_flat.launches = 0
+masked_field_wsum_flat.launches_wide = 0
 
 
 # params dtype -> the kernel's dtype code (csrc/secure_agg.cu)
 _PARAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ANY_P = 2 ** 31 - 1
 
 
 def rolling_update_flat(shares: torch.Tensor, params: torch.Tensor,
@@ -77,7 +87,7 @@ def rolling_update_flat(shares: torch.Tensor, params: torch.Tensor,
     ``repro/kernels/secure_agg/kernel.py:rolling_update_flat``."""
     if shares.device.type == "cpu":
         return _ref.rolling_update_reference(shares, params, alpha)
-    P, N = _cuda.check_rows(shares, "shares", max_rows=_ANY_P)
+    P, N = _cuda.check_rows(shares, "shares")
     if params.dtype not in _PARAM_DTYPES:
         raise ValueError(f"params must be float32, bfloat16 or float16, "
                          f"got {params.dtype}")
@@ -105,8 +115,7 @@ def field_wsum_flat(shares: torch.Tensor) -> torch.Tensor:
     the TPU kernel ``repro/kernels/secure_agg/kernel.py:field_wsum_flat``."""
     if shares.device.type == "cpu":
         return _ref.field_wsum_reference(shares)
-    P, N = _cuda.check_rows(shares, "shares", max_rows=_ANY_P,
-                            dtype=torch.uint32)
+    P, N = _cuda.check_rows(shares, "shares", dtype=torch.uint32)
     words = torch.empty((N,), dtype=torch.int32, device=shares.device)
     if N == 0:
         return words

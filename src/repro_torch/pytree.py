@@ -1,7 +1,8 @@
 """Pytrees of tensors (nested dicts, lists and tuples) in the JAX
 package's conventions: leaves in ``jax.tree`` order (dict keys sorted, then
-list and tuple order), and ``str(treedef)`` reproduced byte for byte,
-because the ravel order and the ledger fingerprints depend on both."""
+list and tuple order), ``str(treedef)`` reproduced byte for byte, because
+the ravel order and the ledger fingerprints depend on both, and leaf
+paths joined as the JAX package's partial merges join them."""
 from __future__ import annotations
 
 from typing import Any, List, Tuple
@@ -71,3 +72,26 @@ def tree_map(fn, tree, *rest) -> Pytree:
     leaves, spec = tree_flatten(tree)
     others = [tree_flatten(t)[0] for t in rest]
     return tree_unflatten(spec, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_flatten_with_path(tree) -> Tuple[List[Tuple[tuple, Any]], Any]:
+    """((path, leaf) pairs in `tree_flatten`'s leaf order, spec).  A path
+    is the tuple of dict keys and sequence positions from the root down to
+    the leaf."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                yield from walk(v, path + (i,))
+        elif t is not None:
+            yield path, t
+    return list(walk(tree, ())), tree_flatten(tree)[1]
+
+
+def leaf_path(path) -> str:
+    """A path from `tree_flatten_with_path` joined with "/": dict keys
+    verbatim, sequence positions as their index, so ``{"conv": [{"w":
+    ...}]}``'s leaf is ``conv/0/w``."""
+    return "/".join(str(k) for k in path)

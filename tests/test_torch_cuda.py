@@ -196,6 +196,70 @@ def test_dp_kernel_takes_offset_views(cuda, k, mask_kind):
     _check_dp(_at_offset(u, k), m)
 
 
+# ----------------------------------------------------------------------
+# the fused kernels past 16 rows: the same entry points launch their
+# P > 16 kernels (counted on `launches_wide`), held to the same standards
+# and equal bit for bit to the kernel-order models (the pair models on the
+# first columns only: they hold every pair's int64 words at once)
+
+_WIDE_WORDS = 2 ** 27
+
+
+def _wide_case(P, N, dead, offset, device):
+    rng = np.random.default_rng([P, N, len(dead), offset])
+    u = rng.standard_normal((P, N)).astype(np.float32)
+    mask = None
+    if dead:
+        mask = np.ones(P, np.float32)
+        mask[list(dead)] = 0.0
+        u[dead[0]] = np.inf
+        u[dead[1]] = np.nan
+        mask = torch.from_numpy(mask).to(device)
+    return _at_offset(torch.from_numpy(u).to(device), offset), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,dead,offset", [
+    (P, N, dead, 0) for P in (17, 32, 64, 128) for N in (3, 4097, 109634)
+    for dead in ((), (0, 4))] + [(33, 4097, (0, 4), 1)])
+def test_fused_kernels_past_16_rows_match_plain(cuda, P, N, dead, offset):
+    u, m = _wide_case(P, N, dead, offset, cuda)
+    cols = min(N, _WIDE_WORDS // (P * (P - 1) // 2))
+    chunk = max(1024, _WIDE_WORDS // (P * (P - 1) // 2))
+    head = u if cols == N else u[:, :cols].contiguous()
+
+    before = agg_kernel.masked_field_wsum_flat.launches_wide
+    words = agg_kernel.masked_field_wsum_flat(u, 99, m)
+    assert agg_kernel.masked_field_wsum_flat.launches_wide == before + 1
+    assert torch.equal(words, agg_ref.masked_field_wsum_reference(
+        u, 99, m, chunk=chunk))
+    assert torch.equal(words[:cols],
+                       agg_ref.masked_field_wsum_kernel_order(head, 99, m))
+
+    before = agg_kernel.masked_rolling_update_flat.launches_wide
+    out = agg_kernel.masked_rolling_update_flat(u, 99, 0.7, m)
+    assert agg_kernel.masked_rolling_update_flat.launches_wide == before + 1
+    torch.testing.assert_close(
+        out, agg_ref.masked_rolling_update_reference(u, 99, 0.7, m,
+                                                     chunk=chunk),
+        atol=P * 1e-6, rtol=0, equal_nan=True)
+    assert _same_bits(out[:, :cols],
+                      agg_ref.masked_rolling_update_kernel_order(
+                          head, 99, 0.7, m))
+
+    norms = dp_ref._row_norms(u)
+    before = dp_kernel.clip_noise_flat.launches_wide
+    noised = dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
+    assert dp_kernel.clip_noise_flat.launches_wide == before + 1
+    torch.testing.assert_close(
+        noised, dp_ref.clip_noise_reference(u, 5, 0.5, 1.0, m, norms),
+        rtol=1e-5, atol=1e-6, equal_nan=True)
+    assert _same_bits(noised, dp_ref.clip_noise_kernel_order(
+        u, 5, 0.5, 1.0, m, norms))
+    for p in dead:
+        assert _same_bits(out[p], u[p]) and _same_bits(noised[p], u[p])
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_instead_of_falling_back(cuda):
     u = torch.zeros((3, 8), device=cuda)
@@ -203,10 +267,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         agg_kernel.masked_rolling_update_flat(u.double(), 1, 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         agg_kernel.masked_field_wsum_flat(u.t().contiguous().t(), 1)
-    with pytest.raises(ValueError, match="1 <= P <= 16"):
-        dp_kernel.clip_noise_flat(torch.zeros((17, 8), device=cuda),
-                                  torch.ones((17, 1), device=cuda),
-                                  1, 1.0, 1.0)
+    # P = 0 rows, or rows that are not (P, N): any P >= 1 runs
+    for bad in (torch.zeros((0, 8), device=cuda),
+                torch.zeros((8,), device=cuda)):
+        with pytest.raises(ValueError, match=r"\(P, N\) with 1 <= P"):
+            dp_kernel.clip_noise_flat(bad, torch.ones((1, 1), device=cuda),
+                                      1, 1.0, 1.0)
 
 
 @pytest.mark.cuda

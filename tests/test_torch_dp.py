@@ -133,7 +133,7 @@ def test_split_dp_words_bitexact(seed, P):
 
 @pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("N", [1, 129, 4097])
-@pytest.mark.parametrize("P", [1, 10, 16])
+@pytest.mark.parametrize("P", [1, 10, 16, 17, 40])
 def test_kernel_order_equals_plain_and_matches_jax(P, N, mask_kind):
     """The kernel's order == the port's plain version bit for bit, within
     rtol 1e-5, atol 1e-6 of JAX's reference; dead rows (inf, NaN) bit-

@@ -239,6 +239,55 @@ def test_split_hash_words_bitexact(seed):
     np.testing.assert_array_equal(_u32(got), want)
 
 
+# past 16 rows the kernels (csrc/secure_agg.cu, the *_wide kernels) keep
+# the same arithmetic, with the net pad summed in int64: |net| < P 2^23
+WIDE_PS = [17, 33, 64]
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", WIDE_PS)
+def test_integer_net_equals_float64_net_past_16_rows(P, mask_kind):
+    """At P > 16 the exact integer net, converted once, still equals the
+    plain version's float64 product rounded once."""
+    _, mask = _case(P, 1, mask_kind)
+    m = _torch_mask(mask)
+    offs = torch.arange(300, dtype=torch.int64)
+    sign = torch.as_tensor(masking.pair_sign_matrix(P))
+    alive = ref._alive(m, P, "cpu")
+    sign_alive = sign * ref._pair_alive(sign, alive).to(torch.float32)
+    pads = masking.mask_block(7, torch.arange(sign.shape[1])[:, None],
+                              offs[None, :])
+    want = (sign_alive.double() @ pads.double()).to(torch.float32)
+    assert torch.equal(ref.float_net_pads(7, P, offs, m), want)
+    assert int(ref.int_net_pads(7, P, offs, m).abs().max()) < P * 2 ** 23
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("P", WIDE_PS)
+def test_kernel_orders_past_16_rows_match_jax(P, mask_kind):
+    """The float round's kernel order within atol = P * 1e-6 of JAX's
+    reference, the share-sum's equal to it, at P > 16; dead rows
+    untouched."""
+    u, mask = _case(P, 301, mask_kind)
+    seed = 0xFEED + P
+    got = ref.masked_rolling_update_kernel_order(
+        torch.from_numpy(u), seed, 0.7, _torch_mask(mask))
+    want = np.asarray(jref.masked_rolling_update_reference(
+        jnp.asarray(u), jnp.asarray([seed], jnp.uint32), 0.7,
+        _jax_mask(mask)))
+    np.testing.assert_allclose(got.numpy(), want, atol=P * 1e-6, rtol=0)
+    if mask is not None:
+        dead = mask == 0
+        np.testing.assert_array_equal(got.numpy()[dead].view(np.uint32),
+                                      u[dead].view(np.uint32))
+    words = ref.masked_field_wsum_kernel_order(torch.from_numpy(u), seed,
+                                               _torch_mask(mask))
+    np.testing.assert_array_equal(_u32(words), np.asarray(
+        jref.masked_field_wsum_reference(
+            jnp.asarray(u), jnp.asarray([seed], jnp.uint32),
+            _jax_mask(mask))))
+
+
 @pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("P", [1, 2, 5, 10, 16])
 def test_integer_net_equals_float64_net(P, mask_kind):
