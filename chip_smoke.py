@@ -119,10 +119,32 @@ AGG_REPEATS = 21                          # calls held bit-identical
 # the fused kernels past 16 rows (their P > 16 kernels), with the same
 # standards: P = 17 (one past the register kernels), the fleet's 32, 64
 # and 128, at N = 3, a ragged N and the main path's, all alive and rows 0
-# and 4 dead (inf, NaN), and one case one element into its storage
+# and 4 dead (inf, NaN); each side of a 16-row tile's edge (the pair
+# walk's tiles) at N = 3 and the ragged N, all alive, rows 0 and 4 dead
+# and a whole tile dead; a dead tile at each P above; P = WIDE_GLOBAL_P,
+# whose accumulators pass shared memory (a global workspace, and the
+# float nets in 64 bits); and one case one element into its storage
 WIDE_P = (17, 32, 64, 128)
-WIDE_CASES = [(P, N, dead, 0) for P in WIDE_P for N in (3, N_RAGGED, N_FULL)
-              for dead in ((), (0, 4))] + [(33, N_RAGGED, (0, 4), 1)]
+WIDE_EDGE_P = (31, 33, 47, 48, 49)
+WIDE_GLOBAL_P = 433
+
+
+def dead_tile(P):
+    """The rows of one whole 16-row tile of P: the middle one, or tile 0
+    where the middle one is the ragged last."""
+    T = -(-P // 16)
+    t = T // 2 if 16 * (T // 2 + 1) <= P else 0
+    return tuple(range(16 * t, 16 * t + 16))
+
+
+WIDE_CASES = (
+    [(P, N, dead, 0) for P in WIDE_P for N in (3, N_RAGGED, N_FULL)
+     for dead in ((), (0, 4))]
+    + [(P, N, dead, 0) for P in WIDE_EDGE_P for N in (3, N_RAGGED)
+       for dead in ((), (0, 4), dead_tile(P))]
+    + [(P, N_RAGGED, dead_tile(P), 0) for P in WIDE_P]
+    + [(33, N_RAGGED, (0, 4), 1), (WIDE_GLOBAL_P, 3, (0, 4), 0),
+       (WIDE_GLOBAL_P, 129, dead_tile(WIDE_GLOBAL_P), 0)])
 # the kernel-order models and the plain versions hold (pairs, columns)
 # int64 words at once: at most this many (1 GiB)
 WIDE_WORDS = 2 ** 27
@@ -397,39 +419,88 @@ LEAD_IN = 5     # calls ahead of the timed ones in each profiled window
 
 def kernel_median_ms(fn, iters, tag):
     """Median device ms of one launch of the kernel whose name holds
-    `tag`: fn(i) is called LEAD_IN + iters times under torch.profiler's
-    CUDA activity, and the median is taken over the last `iters` launches
-    the trace recorded, in start order.  Late in a long process the trace
-    can miss launches at the start of its window (seen on the card: one
-    of 101, two and three of 22); the lead-in calls absorb them, a trace
-    that recorded fewer than `iters` is taken again, and three such
-    traces fail the run."""
+    `tag` (a dict {tag: launches a call}: the call's kernels, each
+    median times its launches, summed): fn(i) is called LEAD_IN + iters
+    times under torch.profiler's CUDA activity, and each median is taken
+    over the last launches the trace recorded, in start order.  Late in a
+    long process the trace can miss launches at the start of its window
+    (seen on the card: one of 101, two and three of 22) or all of them
+    (0 of 26, three traces in a row); the lead-in calls absorb a few, a
+    trace that recorded too few is taken again, and after three such
+    traces the calls are timed by CUDA events instead (`event_call_ms`:
+    every kernel a call launches)."""
+    tags = {tag: 1} if isinstance(tag, str) else tag
     for _ in range(3):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for i in range(LEAD_IN + iters):
                 fn(i)
             torch.cuda.synchronize()
-        mine = sorted((e.time_range.start, e.time_range.elapsed_us())
-                      for e in prof.events()
-                      if str(e.device_type).endswith("CUDA")
-                      and tag in e.name)
-        if len(mine) >= iters:
-            return float(np.median([us for _, us in mine[-iters:]])) / 1e3
-    raise AssertionError((tag, len(mine), LEAD_IN + iters))
+        ms = 0.0
+        for t, per_call in tags.items():
+            mine = sorted((e.time_range.start, e.time_range.elapsed_us())
+                          for e in prof.events()
+                          if str(e.device_type).endswith("CUDA")
+                          and t in e.name)
+            if len(mine) < iters * per_call:
+                break
+            ms += per_call * float(np.median(
+                [us for _, us in mine[-iters * per_call:]])) / 1e3
+        else:
+            return ms
+    ms = event_call_ms(fn, iters)
+    print(f"  (the profiler missed launches of {list(tags)} in three "
+          f"traces: {ms * 1e3:.2f} us a call by CUDA events)")
+    return ms
+
+
+def event_call_ms(fn, iters):
+    """Median device ms of one fn(i) call by CUDA events around it, each
+    call queued behind a 0.5 ms spin of the card so that the events time
+    the call's kernels (and the gaps between them), not the host's
+    launches."""
+    spans = []
+    for i in range(LEAD_IN + iters):
+        torch.cuda._sleep(1_000_000)
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        fn(i)
+        stop.record()
+        spans.append((start, stop))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b)
+                            for a, b in spans[LEAD_IN:]]))
+
+
+def cuobjdump(*args):
+    """cuobjdump's standard output for `args`, or None without it."""
+    from repro_torch.kernels import _cuda
+    exe = shutil.which("cuobjdump") or str(
+        Path(_cuda._nvcc()).with_name("cuobjdump"))
+    if not Path(exe).exists():
+        return None
+    return subprocess.run([exe, *map(str, args)], capture_output=True,
+                          text=True).stdout
+
+
+def kernel_sass(lib_path, tag):
+    """The SASS of the kernel whose mangled name holds `tag`, or None
+    without cuobjdump."""
+    sass = cuobjdump("-sass", lib_path)
+    if sass is None:
+        return None
+    return next(f for f in sass.split("Function : ")[1:]
+                if tag in f.split("\n", 1)[0])
 
 
 def print_resource_usage(lib_path, tag):
     """Registers and spills of the kernels whose mangled name holds
     `tag`, from cuobjdump."""
-    from repro_torch.kernels import _cuda
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(_cuda._nvcc()).with_name("cuobjdump"))
-    if not Path(cuobjdump).exists():
+    usage = cuobjdump("--dump-resource-usage", lib_path)
+    if usage is None:
         return
-    usage = subprocess.run([cuobjdump, "--dump-resource-usage",
-                            str(lib_path)], capture_output=True, text=True)
-    lines = usage.stdout.splitlines()
+    lines = usage.splitlines()
     for name, counts in zip(lines, lines[1:]):   # "Function f:", "REG:"
         if "Function" in name and tag in name:
             print(f"  {name.strip()} {counts.strip()}")
@@ -444,15 +515,9 @@ def print_sass_floor(lib_path, tag, n, threads=128):
     ones.  Then the issue-rate floor of that last count at n columns, one
     column a thread: one warp instruction a clock on each of the 4
     schedulers of each SM."""
-    from repro_torch.kernels import _cuda
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(_cuda._nvcc()).with_name("cuobjdump"))
-    if not Path(cuobjdump).exists():
+    body = kernel_sass(lib_path, tag)
+    if body is None:
         return
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
-                          capture_output=True, text=True).stdout
-    body = next(f for f in sass.split("Function : ")[1:]
-                if tag in f.split("\n", 1)[0])
     ops = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);",
         body) if op != "NOP"]
@@ -474,6 +539,24 @@ def print_sass_floor(lib_path, tag, n, threads=128):
           f"({len(skipped) // max(1, sum('105615' in r for _, _, r in main))}"
           f" each), {mufu} MUFU; issue-rate floor of those {fast} at N = "
           f"{n}: {floor_ms * 1e3:.2f} us")
+
+
+def print_sass_hashes(lib_path, tag):
+    """The SASS instructions of the kernel whose mangled name holds `tag`
+    that multiply by mix32's first constant (kMulA, 0x7feb352d): one a
+    hashed word in the pair walks' unrolled bodies (the diagonal tile's
+    120 words, 16 in each copy of an off-diagonal row's loop) and one a
+    staged key, so the count shows that the walk hashes each of a tile
+    pair's words once and that the int kernel's cancelling pads were not
+    folded away.  Returns the count (None without cuobjdump)."""
+    body = kernel_sass(lib_path, tag)
+    if body is None:
+        return None
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+    hashes = sum("0x7feb352d" in op.lower() for op in ops)
+    print(f"  sass {tag}: {len(ops)} instructions, {hashes} multiply by "
+          f"mix32's first constant")
+    return hashes
 
 
 class Stopwatch:
@@ -650,7 +733,8 @@ def check_secure_agg_wide(kernels, dev):
             for p in dead:
                 assert same_bits(got[p], u[p]), case
         print(f"check {name} P > 16: kernel == plain on {len(WIDE_CASES)} "
-              f"(P, N, dead rows, offset) cases, P in {WIDE_P}; == the "
+              f"(P, N, dead rows, offset) cases, P in "
+              f"{sorted({c[0] for c in WIDE_CASES})}; == the "
               f"kernel-order model bit for bit; max |err| "
               f"{k['wide_max_abs_err']:.3g} ({time.perf_counter() - t0:.1f}"
               f" s)")
@@ -1464,11 +1548,13 @@ def time_secure_agg(dev, kernels, totals):
 
 def wide_call_ms(fn, name, iters=21):
     """Median device ms of one fn(i) call of a fused wrapper past 16
-    rows: its main kernel's median plus its key kernel's, times that
-    kernel's launches a call (DP: one for each stream)."""
-    keys = kernel_median_ms(fn, iters, "wide_keys_kernel")
-    return (kernel_median_ms(fn, iters, f"{name}_wide_kernel")
-            + (2 if name == "clip_noise" else 1) * keys)
+    rows: its kernel's median; the DP kernel's plus its key kernel's
+    twice (one launch for each stream; the pair kernels stage their keys
+    themselves)."""
+    tags = {f"{name}_wide_kernel": 1}
+    if name == "clip_noise":
+        tags["wide_keys_kernel"] = 2
+    return kernel_median_ms(fn, iters, tags)
 
 
 WIDE_TIMED = (32, 128)
@@ -1476,8 +1562,8 @@ WIDE_TIMED = (32, 128)
 
 def time_secure_agg_wide(dev, kernels, launches_wide):
     """Each fused wrapper's P > 16 kernel at (P, N_FULL) for P in
-    WIDE_TIMED, rows 0 and 4 dead: the device time of a call (its key
-    kernel and its main kernel; profiler medians over 21 calls cycling
+    WIDE_TIMED, rows 0 and 4 dead: the device time of a call (of all it
+    launches, `wide_call_ms`; profiler medians over 21 calls cycling
     inputs larger than the L2) beside its bound and the plain version's
     time (3 calls).  Returns the kernels line's rows, the fleet's P = 32
     as `ms`, P = 128 as `ms_p128`."""
@@ -1515,8 +1601,8 @@ def time_secure_agg_wide(dev, kernels, launches_wide):
             row.update({f"ms{tag}": ms, f"plain_ms{tag}": p_ms,
                         f"bound_ms{tag}": b_ms, f"bound_by{tag}": b_by})
             print(f"time {name} P > 16 at ({P}, {N_FULL}), rows 0 and 4 "
-                  f"dead: {ms * 1e3:.2f} us on the card (key and main "
-                  f"kernels) | plain {p_ms * 1e3:.1f} us | bound "
+                  f"dead: {ms * 1e3:.2f} us on the card (all a call "
+                  f"launches) | plain {p_ms * 1e3:.1f} us | bound "
                   f"{b_ms * 1e3:.2f} us by {b_by} (bytes "
                   f"{bytes_ms * 1e3:.2f} us, operations "
                   f"{ops_ms * 1e3:.2f} us); kernel at {b_ms / ms:.1%} of "
@@ -2181,6 +2267,14 @@ def main() -> int:
     print_resource_usage(built["secure_agg"][0], "17field_wsum_kernel")
     print_sass_floor(built["secure_agg"][0], "17clip_noise_kernelILi10E",
                      N_FULL)
+    # the P > 16 pair walks (shared-memory accumulators): registers, and
+    # their hashes, which the int kernel's cancelling pads must keep
+    print_resource_usage(built["secure_agg"][0], "wide_kernelIjLb1E")
+    print_resource_usage(built["secure_agg"][0], "wide_kernelILb1E")
+    for tag in ("33masked_rolling_update_wide_kernelIjLb1E",
+                "29masked_field_wsum_wide_kernelILb1E"):
+        hashes = print_sass_hashes(built["secure_agg"][0], tag)
+        assert hashes is None or hashes >= 120 + 16, (tag, hashes)
 
     # ---- each kernel against its plain version -----------------------
     kernels = secure_agg_kernels(dev)

@@ -17,9 +17,10 @@
 //       per-row L2 clip + Box-Muller Gaussian noise.
 //
 // Those three hold P <= 16 rows in registers.  Past 16 rows the same C
-// entry points launch plainer kernels of the same three functions
-// (masked_rolling_update_wide_kernel, masked_field_wsum_wide_kernel,
-// clip_noise_wide_kernel; the section "The fused kernels at P > 16").
+// entry points launch kernels of the same three functions that walk the
+// rows in tiles (masked_rolling_update_wide_kernel,
+// masked_field_wsum_wide_kernel) or loop over them (clip_noise_wide_kernel;
+// the section "The fused kernels at P > 16").
 //
 // and the legacy two-stage round's two aggregates of pre-masked shares
 // (the explicit-dataflow oracle the fused round was built against; see
@@ -124,9 +125,12 @@
 // noise uses the accurate logf / sqrtf / cosf, never the __ intrinsics.
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "smem_allowance.cuh"
 
 namespace {
 
@@ -388,33 +392,74 @@ inline unsigned blocks_for(int64_t n) {
 //
 // The kernels above keep a column's P rows, the launch's keys (by value)
 // and the alive bits (one warp ballot) in registers, so they stop at P =
-// kMaxRows.  Past it the entry points launch these, which compute the
-// same three functions through the same split hash, one column a thread
-// and kAggThreads threads a block, in a plainer form:
-//   - the keys live in a device workspace that the wrapper allocates:
-//     wide_keys_kernel writes them before the main launch (the P(P-1)/2
-//     pair keys, or the DP streams' P + P row keys), each in split form.
-//     A warp reads one key at one address, a broadcast from L1;
-//   - rows are looped, not unrolled, and row p's participation is read
-//     from mask[p] where it is needed, so any P is covered;
-//   - each row sums its own pads over its alive partners (+ as a pair's
-//     i, - as its j), as each institution computes its own share: no
-//     per-row accumulator is held, and each pair's word is hashed twice,
-//     once by each member.
-// The float net is summed exactly in int64 (|net| < P 2^23) and converted
-// once, the survivors' shares summed in row order 0..P-1 and the blend
-// rounded after each operation: masked_rolling_update_kernel_order's
-// arithmetic, as in the P <= 16 kernel.  The int kernel's wrapping sum
-// is the same in any order.  The DP kernel computes a row's factor for
-// each column (the same IEEE division as once a row) and its noise as the
-// P <= 16 kernel does; dead rows are copied.
+// kMaxRows.  Past it the entry points launch the three kernels below, one
+// column a thread, through the same split hash.
 //
-// Bound: at P = 32 and N = 109,634 the float kernel's function is bound
-// by its integer operations (496 pairs x 7 a word, 0.02 ms) and at P = 128
-// more so (8,128 pairs, 0.31 ms; the bytes take 8 and 34 us); the int and
-// DP kernels by bytes.  The pairs' words are hashed twice here, so the
-// float and int kernels do twice the float kernel's least integer work
-// (chip_smoke.py:op_counts).  Right first; PERF.md has their times.
+// masked_rolling_update_wide_kernel and masked_field_wsum_wide_kernel walk
+// the pairs so that each pair's word is hashed once, added to row i's net
+// and subtracted from row j's:
+//   - The rows are cut into tiles of kTile = 16.  The tile pairs (I, J), I
+//     <= J, are walked I outer, J inner.  A thread keeps tile I's 16 nets
+//     in registers across its whole row of tile pairs.  Off the diagonal,
+//     row b of tile J takes its 16 words (one per row of I) in one register
+//     sum, subtracted from that row's accumulator once; on the diagonal the
+//     120 words of the upper triangle are unrolled with constant indices,
+//     so every net is a register there too.  The accumulators, one per row
+//     and column, live in shared memory (P x kWideThreads x 4 B at most
+//     227 KB: P <= 432); each thread touches its own column's only, so they
+//     need no barrier.  Where they do not fit (P > 432, or the float
+//     kernel's 64-bit nets past 256 rows) they live in a global workspace
+//     of the same layout that the wrapper allocates
+//     (masked_wide_workspace_bytes).  Rows past P in a ragged last tile
+//     have their pairs gated off.
+//   - A tile pair's 256 split keys and pair gates are staged in shared
+//     memory by the block, two entries a thread (the pair index in 64 bits,
+//     then one mix32: stream_key's seed half is computed once), into one of
+//     two buffers while the other is read, so one barrier a tile pair.  A
+//     warp reads them as 16-byte broadcasts.  No key workspace, no second
+//     kernel.
+//   - Pair (i, j)'s gate, all ones iff both rows survive, is staged with
+//     its key and and-ed into the hash's last xor (one LOP3), so no branch
+//     splits the unrolled words; a dead row's words are hashed and dropped.
+//   - When tile I's row of tile pairs is done its rows' nets are whole (the
+//     accumulator holds what earlier tiles gave them), so the rows are
+//     finished there, in row order.  The float kernel converts row p's net,
+//     sum sign (bits >> 8) - 2^23 d_p in units of 2^-23, once, and adds the
+//     survivor's share to the column total in row order 0..P-1; the int
+//     kernel adds each survivor's encode + pad to its wrapping share-sum.
+//     Each row is read once: tile I's 16 loads are issued before its walk,
+//     and the float kernel keeps each row's value in the accumulator slot
+//     it no longer needs, for the blend after the mean.
+//   - Width.  The nets are summed in unsigned (wrapping) arithmetic, exact
+//     modulo 2^32 in any order; |net| < P 2^23, so up to P = 256 the int32
+//     reading of the 32 bits is the net itself, and past 256 rows the float
+//     kernel sums in 64 bits.  The int kernel's pads are Z_2^32 words.
+//   So the float kernel's arithmetic is masked_rolling_update_kernel_order's
+//   and the int kernel's masked_field_wsum_kernel_order's, as at P <= 16;
+//   kernels/secure_agg/ref.py's wide_pair_tiles, wide_int_net_pads and
+//   wide_field_pads are the walk in PyTorch.
+//
+// Bound (chip_smoke.py:op_counts) at N = 109,634 with 2 of P rows dead: the
+// float kernel's function is bound by its integer operations, 6 logic and
+// shift ops an alive pair's word on the INT32 pipe: 17.1 us at P = 32 and
+// 310 us at P = 128 (its bytes take 8.4 and 33.5 us).  The walk issues
+// about 9.5 instructions a word, for dead pairs too: the hash's 5 logic
+// and shift ops with the gate folded in and its 2 multiplies, 2 adds
+// that take the shift to 24 bits with them (LEA.HI), and half a 16-byte
+// shared load of keys and gates.  7 of them run on the INT32 pipe, so it
+// is held to that pipe's rate, as the bound is, with 7 operations for the
+// bound's 6 and the dead pairs' 14% more words at P = 32.  The int
+// kernel's function needs no pad word (the survivors' pads cancel in
+// Z_2^32) and is bound by bytes, 4.3 us at P = 32; the kernel keeps the
+// pads, as the TPU kernel and the P <= 16 one do, so it does the float
+// kernel's hashing less the shift.  PERF.md has their times.
+//
+// clip_noise_wide_kernel keeps the plainer first form: its 2P stream keys
+// in a device workspace that wide_keys_kernel writes before the main
+// launch, rows looped, row p's participation read from mask[p] and its
+// factor computed for each column (the same IEEE division as once a row),
+// its noise as the P <= 16 kernel computes it; dead rows are copied.  Its
+// function is bound by bytes (8.4 us at P = 32).
 
 // keys[k] = split_key(stream_key(seed, k)) for k < count.
 __global__ void __launch_bounds__(kThreads)
@@ -432,73 +477,270 @@ __device__ __forceinline__ bool row_alive(const float* mask, int p) {
   return mask == nullptr || mask[p] > 0.0f;
 }
 
-// The stream index of pair (i, j), i < j, of P rows (lexicographic).
-__device__ __forceinline__ int64_t wide_pair_index(int64_t P, int64_t i,
-                                                   int64_t j) {
-  return i * (2 * P - i - 1) / 2 + (j - i - 1);
+constexpr int kWideThreads = 128;   // a walk's block (64: slower, PERF.md)
+constexpr int kTile = 16;                    // rows of a tile of the walk
+constexpr int kTileWords = kTile * kTile;
+constexpr int kNet32Rows = 256;              // |net| < P 2^23 <= 2^31
+constexpr size_t kBlockSmemBytes = 232448;   // a block's on an H100
+
+// A tile pair (I, J)'s split keys and gates: entry b kTile + a is pair (i,
+// j) = (kTile I + a, kTile J + b); zero where not i < j < P.
+struct alignas(16) TileKeys {
+  uint32_t key[kTileWords];
+  uint32_t gate[kTileWords];
+};
+
+inline unsigned wide_blocks(int64_t n) {
+  return (unsigned)((n + kWideThreads - 1) / kWideThreads);
 }
 
-// Pair (p, q)'s pad word, q != p, at split counter c.
-__device__ __forceinline__ uint32_t wide_pad_word(const uint32_t* keys,
-                                                  int P, int p, int q,
-                                                  uint32_t c) {
-  return mix32_tail(keys[wide_pair_index(P, min(p, q), max(p, q))] ^ c);
+__host__ __device__ __forceinline__ int wide_tiles(int p) {
+  return (p + kTile - 1) / kTile;
 }
 
-__global__ void __launch_bounds__(kAggThreads)
+// Bytes of a block's accumulators: one Acc a (padded) row and column.
+template <typename Acc>
+size_t wide_acc_bytes(int p) {
+  return (size_t)wide_tiles(p) * kTile * kWideThreads * sizeof(Acc);
+}
+
+// True when a block's accumulators fit in shared memory beside the two
+// key buffers.
+template <typename Acc>
+bool wide_acc_shared(int p) {
+  return 2 * sizeof(TileKeys) + wide_acc_bytes<Acc>(p) <= kBlockSmemBytes;
+}
+
+// The block stages tile pair (I, J)'s keys and gates into `buf`; h is
+// stream_key's seed half, mix32(seed ^ golden).
+__device__ __forceinline__ void stage_tile_pair(TileKeys& buf, int I, int J,
+                                                int P, uint32_t h,
+                                                const float* mask) {
+#pragma unroll
+  for (int r = 0; r < kTileWords / kWideThreads; ++r) {
+    const int e = r * kWideThreads + threadIdx.x;
+    const int i = I * kTile + e % kTile, j = J * kTile + e / kTile;
+    uint32_t key = 0, gate = 0;
+    if (i < j && j < P) {
+      const int64_t k =
+          (int64_t)i * (2 * (int64_t)P - i - 1) / 2 + (j - i - 1);
+      key = split_key(mix32(h ^ ((uint32_t)k * kPairMul)));
+      gate = row_alive(mask, i) && row_alive(mask, j) ? ~0u : 0u;
+    }
+    buf.key[e] = key;
+    buf.gate[e] = gate;
+  }
+}
+
+// A staged pair's gated word at split counter c; the float walk sums its
+// top 24 bits.
+template <bool kFloat>
+__device__ __forceinline__ uint32_t walk_word(uint32_t key, uint32_t gate,
+                                              uint32_t c) {
+  const uint32_t w = pad_word(key, c, gate);
+  return kFloat ? w >> 8 : w;
+}
+
+// The pair walk of both kernels (the notes above).  kFloat: the float
+// round, `param` alpha, rows out to out_rows; else the share-sum, `param`
+// the encode's scale, out to out_sum.  Acc: the nets' unsigned width;
+// kSharedAcc: the accumulators in shared memory, else in `work`.
+template <bool kFloat, typename Acc, bool kSharedAcc>
+__device__ __forceinline__ void masked_wide_walk(
+    const float* __restrict__ u, float* __restrict__ out_rows,
+    uint32_t* __restrict__ out_sum, const float* __restrict__ mask, int P,
+    int64_t n, uint32_t seed, float param, Acc* __restrict__ work) {
+  using Net = std::make_signed_t<Acc>;
+  extern __shared__ uint4 wide_smem[];
+  TileKeys* bufs = reinterpret_cast<TileKeys*>(wide_smem);
+  const int tiles = wide_tiles(P);
+  const int64_t g = (int64_t)blockIdx.x * kWideThreads + threadIdx.x;
+  const bool in = g < n;   // a thread past n walks too: it stages keys
+  // row r's accumulator of this thread's column is acc[r * kWideThreads]
+  Acc* acc;
+  if constexpr (kSharedAcc)
+    acc = reinterpret_cast<Acc*>(bufs + 2) + threadIdx.x;
+  else
+    acc = work + (int64_t)blockIdx.x * tiles * kTile * kWideThreads +
+          threadIdx.x;
+  for (int r = 0; r < tiles * kTile; ++r) acc[r * kWideThreads] = 0;
+  int alive = P;
+  if (mask != nullptr) {
+    alive = 0;
+    for (int p0 = 0; p0 < P; p0 += kWideThreads)
+      alive += __syncthreads_count(p0 + (int)threadIdx.x < P &&
+                                   mask[p0 + threadIdx.x] > 0.0f);
+  }
+  const uint32_t c = split_counter((uint32_t)g);
+  const uint32_t h = mix32(seed ^ kGolden);
+  stage_tile_pair(bufs[0], 0, 0, P, h, mask);
+  int cur = 0;
+  int below = 0;          // the float round: alive rows before this one
+  float total = 0.0f;     // the float round: survivors' shares, row order
+  uint32_t sum = 0;       // the share-sum, wrapping
+  for (int I = 0; I < tiles; ++I) {
+    float x[kTile];       // tile I's rows, in flight during its walk
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) {
+      const int p = I * kTile + a;
+      x[a] = in && p < P ? u[p * n + g] : 0.0f;
+    }
+    Acc net[kTile];
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) net[a] = 0;
+    for (int J = I; J < tiles; ++J) {
+      __syncthreads();    // every thread is done reading bufs[cur ^ 1]
+      if (J + 1 < tiles)
+        stage_tile_pair(bufs[cur ^ 1], I, J + 1, P, h, mask);
+      else if (I + 1 < tiles)
+        stage_tile_pair(bufs[cur ^ 1], I + 1, I + 1, P, h, mask);
+      const TileKeys& k = bufs[cur];
+      if (J == I) {
+#pragma unroll
+        for (int b = 1; b < kTile; ++b) {
+          uint32_t s = 0;
+#pragma unroll
+          for (int a = 0; a < b; ++a) {
+            const uint32_t w = walk_word<kFloat>(k.key[b * kTile + a],
+                                                 k.gate[b * kTile + a], c);
+            net[a] += w;
+            s += w;
+          }
+          net[b] -= s;
+        }
+      } else {
+#pragma unroll 1
+        for (int b = 0; b < kTile; ++b) {   // one row of J: 16 words
+          const uint4* key4 = reinterpret_cast<const uint4*>(k.key) + b * 4;
+          const uint4* gate4 =
+              reinterpret_cast<const uint4*>(k.gate) + b * 4;
+          uint32_t s = 0;
+#pragma unroll
+          for (int q = 0; q < kTile / 4; ++q) {
+            const uint4 kq = key4[q], gq = gate4[q];
+            const uint32_t ks[4] = {kq.x, kq.y, kq.z, kq.w};
+            const uint32_t gs[4] = {gq.x, gq.y, gq.z, gq.w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const uint32_t w = walk_word<kFloat>(ks[r], gs[r], c);
+              net[4 * q + r] += w;
+              s += w;
+            }
+          }
+          acc[(J * kTile + b) * kWideThreads] -= s;
+        }
+      }
+      cur ^= 1;
+    }
+    // tile I's nets are whole: finish its rows in row order
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) {
+      const int p = I * kTile + a;
+      if (p < P) {
+        Acc& slot = acc[p * kWideThreads];
+        const Acc whole = net[a] + slot;
+        const bool on = row_alive(mask, p);
+        if constexpr (kFloat) {
+          if (on) {
+            // - 2^23 d_p: d_p = (alive rows after p) - (alive rows before)
+            const Acc offset = (Acc)(Net)(2 * below + 1 - alive) << 23;
+            total += x[a] + (float)(Net)(whole + offset) * kU23;
+            ++below;
+          }
+          slot = __float_as_uint(x[a]);   // for the blend
+        } else {
+          sum += (encode_rn(x[a], param) + (uint32_t)whole) &
+                 (on ? ~0u : 0u);
+        }
+      }
+    }
+  }
+  if (!in) return;
+  if constexpr (kFloat) {
+    const float agg = total / fmaxf((float)alive, 1.0f);
+    for (int p = 0; p < P; ++p) {
+      const float xp = __uint_as_float((uint32_t)acc[p * kWideThreads]);
+      out_rows[p * n + g] = row_alive(mask, p) ? xp + param * (agg - xp)
+                                               : xp;
+    }
+  } else {
+    out_sum[g] = sum;
+  }
+}
+
+template <typename Acc, bool kSharedAcc>
+__global__ void __launch_bounds__(kWideThreads)
 masked_rolling_update_wide_kernel(const float* __restrict__ u,
                                   float* __restrict__ out,
                                   const float* __restrict__ mask, int P,
-                                  int64_t n,
-                                  const uint32_t* __restrict__ keys,
-                                  float alpha) {
-  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
-  if (g >= n) return;
-  const uint32_t c = split_counter((uint32_t)g);
-  int count = 0;
-  float total = 0.0f;
-  for (int p = 0; p < P; ++p) {
-    if (!row_alive(mask, p)) continue;
-    ++count;
-    // the net pad in units of 2^-23: sign ((bits >> 8) - 2^23) a partner
-    int64_t net = 0;
-    for (int q = 0; q < P; ++q) {
-      if (q == p || !row_alive(mask, q)) continue;
-      const int64_t v =
-          (int64_t)(wide_pad_word(keys, P, p, q, c) >> 8) - (1 << 23);
-      net += p < q ? v : -v;
-    }
-    total += u[p * n + g] + (float)net * kU23;
-  }
-  const float agg = total / fmaxf((float)count, 1.0f);
-  for (int p = 0; p < P; ++p) {
-    const float x = u[p * n + g];
-    out[p * n + g] = row_alive(mask, p) ? x + alpha * (agg - x) : x;
-  }
+                                  int64_t n, uint32_t seed, float alpha,
+                                  Acc* __restrict__ work) {
+  masked_wide_walk<true, Acc, kSharedAcc>(u, out, nullptr, mask, P, n,
+                                          seed, alpha, work);
 }
 
-__global__ void __launch_bounds__(kAggThreads)
+template <bool kSharedAcc>
+__global__ void __launch_bounds__(kWideThreads)
 masked_field_wsum_wide_kernel(const float* __restrict__ u,
                               uint32_t* __restrict__ out,
                               const float* __restrict__ mask, int P,
-                              int64_t n, const uint32_t* __restrict__ keys,
-                              float scale) {
-  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
-  if (g >= n) return;
-  const uint32_t c = split_counter((uint32_t)g);
-  uint32_t sum = 0;
-  for (int p = 0; p < P; ++p) {
-    if (!row_alive(mask, p)) continue;
-    // row p's share: its encode +/- its alive pairs' words, wrapping
-    uint32_t share = encode_rn(u[p * n + g], scale);
-    for (int q = 0; q < P; ++q) {
-      if (q == p || !row_alive(mask, q)) continue;
-      const uint32_t w = wide_pad_word(keys, P, p, q, c);
-      share += p < q ? w : 0u - w;
-    }
-    sum += share;
+                              int64_t n, uint32_t seed, float scale,
+                              uint32_t* __restrict__ work) {
+  masked_wide_walk<false, uint32_t, kSharedAcc>(u, nullptr, out, mask, P,
+                                                n, seed, scale, work);
+}
+
+// Bytes of the global accumulators a walk kernel with Acc nets needs at
+// (p, n): 0 where they fit in shared memory.
+template <typename Acc>
+int64_t wide_workspace_bytes(int p, int64_t n) {
+  return wide_acc_shared<Acc>(p)
+             ? 0
+             : (int64_t)wide_blocks(n) * (int64_t)wide_acc_bytes<Acc>(p);
+}
+
+// Launch a walk kernel's instantiation for Acc: shared accumulators where
+// they fit (the allowance raised once per device), else `work`.
+template <typename Acc, typename Out, typename SharedKernel,
+          typename GlobalKernel>
+int launch_wide_walk(SharedKernel shared_kernel, GlobalKernel global_kernel,
+                     std::atomic<uint64_t>& allowed, const float* u, Out* out,
+                     const float* mask, int p, int64_t n, uint32_t seed,
+                     float param, void* work, cudaStream_t s) {
+  if (wide_acc_shared<Acc>(p)) {
+    const cudaError_t err =
+        allow_smem_once(allowed, shared_kernel, kBlockSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    shared_kernel<<<wide_blocks(n), kWideThreads,
+                    2 * sizeof(TileKeys) + wide_acc_bytes<Acc>(p), s>>>(
+        u, out, mask, p, n, seed, param, nullptr);
+  } else {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    global_kernel<<<wide_blocks(n), kWideThreads, 2 * sizeof(TileKeys), s>>>(
+        u, out, mask, p, n, seed, param, (Acc*)work);
   }
-  out[g] = sum;
+  return (int)cudaGetLastError();
+}
+
+template <typename Acc>
+int launch_rolling_update_wide(const float* u, float* out, const float* mask,
+                               int p, int64_t n, uint32_t seed, float alpha,
+                               void* work, cudaStream_t s) {
+  static std::atomic<uint64_t> allowed{0};
+  return launch_wide_walk<Acc>(masked_rolling_update_wide_kernel<Acc, true>,
+                               masked_rolling_update_wide_kernel<Acc, false>,
+                               allowed, u, out, mask, p, n, seed, alpha, work,
+                               s);
+}
+
+int launch_field_wsum_wide(const float* u, uint32_t* out, const float* mask,
+                           int p, int64_t n, uint32_t seed, float scale,
+                           void* work, cudaStream_t s) {
+  static std::atomic<uint64_t> allowed{0};
+  return launch_wide_walk<uint32_t>(masked_field_wsum_wide_kernel<true>,
+                                    masked_field_wsum_wide_kernel<false>,
+                                    allowed, u, out, mask, p, n, seed, scale,
+                                    work, s);
 }
 
 // keys[0..P): stream A's row keys, keys[P..2P): stream B's.
@@ -677,21 +919,22 @@ int launch_rolling_update(const void* shares, const void* params, void* out,
 
 extern "C" {
 
-// `work`: at p > kMaxRows, a device workspace for the launch's keys,
-// p(p-1)/2 uint32 words (clip_noise_f32: 2p); unread otherwise.
+// `work`: at p > kMaxRows, the accumulator workspace of
+// masked_wide_workspace_bytes(p, n, domain) bytes, or null where that is 0
+// (clip_noise_f32: 2p uint32 words for its keys); unread otherwise.
 int masked_rolling_update_f32(const void* u, void* out, const void* mask,
                               int p, int64_t n, uint32_t seed, float alpha,
                               void* work, void* stream) {
   if (n <= 0 || p < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (p > kMaxRows) {
-    if (work == nullptr) return (int)cudaErrorInvalidValue;
-    launch_wide_keys(seed, (int64_t)p * (p - 1) / 2, (uint32_t*)work, s);
-    masked_rolling_update_wide_kernel<<<agg_blocks(n), kAggThreads, 0, s>>>(
-        (const float*)u, (float*)out, (const float*)mask, p, n,
-        (const uint32_t*)work, alpha);
-    return (int)cudaGetLastError();
-  }
+  if (p > kMaxRows)
+    return p <= kNet32Rows
+               ? launch_rolling_update_wide<uint32_t>(
+                     (const float*)u, (float*)out, (const float*)mask, p, n,
+                     seed, alpha, work, s)
+               : launch_rolling_update_wide<uint64_t>(
+                     (const float*)u, (float*)out, (const float*)mask, p, n,
+                     seed, alpha, work, s);
   const PairKeys keys = split_pair_keys(seed, p);
 #define LAUNCH(P)                                                        \
   masked_rolling_update_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>( \
@@ -706,14 +949,10 @@ int masked_field_wsum_f32(const void* u, void* out, const void* mask, int p,
                           void* stream) {
   if (n <= 0 || p < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (p > kMaxRows) {
-    if (work == nullptr) return (int)cudaErrorInvalidValue;
-    launch_wide_keys(seed, (int64_t)p * (p - 1) / 2, (uint32_t*)work, s);
-    masked_field_wsum_wide_kernel<<<agg_blocks(n), kAggThreads, 0, s>>>(
-        (const float*)u, (uint32_t*)out, (const float*)mask, p, n,
-        (const uint32_t*)work, scale);
-    return (int)cudaGetLastError();
-  }
+  if (p > kMaxRows)
+    return launch_field_wsum_wide((const float*)u, (uint32_t*)out,
+                                  (const float*)mask, p, n, seed, scale, work,
+                                  s);
   const PairKeys keys = split_pair_keys(seed, p);
 #define LAUNCH(P)                                                        \
   masked_field_wsum_kernel<P><<<agg_blocks(n), kAggThreads, 0, s>>>(     \
@@ -721,6 +960,16 @@ int masked_field_wsum_f32(const void* u, void* out, const void* mask, int p,
   REPRO_DISPATCH_ROWS(p, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Bytes of the accumulator workspace masked_rolling_update_f32 (domain 0)
+// or masked_field_wsum_f32 (domain 1) needs at (p, n): 0 where p <=
+// kMaxRows or the accumulators fit in shared memory.
+int64_t masked_wide_workspace_bytes(int p, int64_t n, int domain) {
+  if (p <= kMaxRows || n <= 0) return 0;
+  if (domain == 0 && p > kNet32Rows)
+    return wide_workspace_bytes<uint64_t>(p, n);
+  return wide_workspace_bytes<uint32_t>(p, n);
 }
 
 int clip_noise_f32(const void* u, void* out, const void* norms,

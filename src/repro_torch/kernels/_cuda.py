@@ -45,11 +45,11 @@ SOURCES = {
         # plain PyTorch version rounds
         ("-fmad=false",),
         {
-            # (u, out, mask, P, N, seed, alpha, key workspace)
+            # (u, out, mask, P, N, seed, alpha, accumulator workspace)
             "masked_rolling_update_f32": (_P, _P, _P, _I, _L,
                                           ctypes.c_uint32, ctypes.c_float,
                                           _P),
-            # (u, out, mask, P, N, seed, scale, key workspace)
+            # (u, out, mask, P, N, seed, scale, accumulator workspace)
             "masked_field_wsum_f32": (_P, _P, _P, _I, _L, ctypes.c_uint32,
                                       ctypes.c_float, _P),
             # (u, out, norms, mask, P, N, seed, clip, sigma, key workspace)
@@ -89,6 +89,9 @@ SOURCES = {
 QUERIES = {
     # (Bz, T, di, N) -> bytes of ssm_scan_fwd's workspace, -1 out of range
     "ssm_scan_workspace_bytes": ("ssm_scan", (_I,) * 4, _L),
+    # (P, N, domain: 0 float, 1 int) -> bytes of the P > 16 masked
+    # kernels' accumulator workspace, 0 where shared memory holds them
+    "masked_wide_workspace_bytes": ("secure_agg", (_I, _L, _I), _L),
 }
 _OWNER = {fn: src for src, (_, sigs) in SOURCES.items() for fn in sigs}
 
@@ -209,8 +212,10 @@ def ptr(t) -> int | None:
 
 
 # The fused kernels hold a column's rows in registers up to this P; past
-# it the same entry points launch their P > 16 kernels, which read the
-# launch's keys from a workspace (`wide_keys`).
+# it the same entry points launch their P > 16 kernels: the masked pair
+# walks the rows in tiles, its accumulators in shared memory or, where
+# they do not fit, in a workspace (`wide_accumulators`); the DP kernel
+# reads its keys from a workspace (`wide_keys`).
 FUSED_MAX_ROWS = 16
 ANY_P = 2 ** 31 - 1
 
@@ -233,12 +238,25 @@ def check_rows(x: torch.Tensor, what: str = "updates",
 
 
 def wide_keys(P: int, n_keys: int, device) -> torch.Tensor | None:
-    """The key workspace of a fused kernel's launch: `n_keys` uint32 words
+    """The key workspace of a DP kernel's launch: `n_keys` uint32 words
     on `device` when P > FUSED_MAX_ROWS, else None (the P <= 16 kernels
     take their keys by value)."""
     if P <= FUSED_MAX_ROWS:
         return None
     return torch.empty((n_keys,), dtype=torch.int32, device=device)
+
+
+def wide_accumulators(P: int, N: int, domain: int,
+                      device) -> torch.Tensor | None:
+    """The accumulator workspace of a masked kernel's launch past
+    FUSED_MAX_ROWS rows (domain 0 float, 1 int), or None where its
+    accumulators fit in shared memory (or P <= FUSED_MAX_ROWS)."""
+    if P <= FUSED_MAX_ROWS:
+        return None
+    nbytes = query("masked_wide_workspace_bytes", P, N, domain)
+    if nbytes == 0:
+        return None
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
 
 
 def mask_arg(mask, P: int, device) -> torch.Tensor | None:

@@ -88,8 +88,7 @@ def clip_noise_kernel_order(updates: torch.Tensor, seed: int, clip, sigma,
     b1, b2 = split_dp_words(seed, P, torch.arange(N, device=dev))
     u1 = ((b1 >> 8) + 1).to(torch.float32) * masking._U24    # (0, 1]
     u2 = (b2 >> 8).to(torch.float32) * masking._U24          # [0, 1)
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
-        masking._TWO_PI_F32 * u2)
+    z = masking.box_muller(u1, u2)
     u = updates.to(torch.float32)
     out = torch.where(_alive(mask, P, dev) > 0.0, factor * u + scale * z, u)
     return out.to(updates.dtype)

@@ -31,11 +31,11 @@ def masked_rolling_update_flat(updates: torch.Tensor, seed: int, alpha,
     if N == 0:
         return out
     m = _cuda.mask_arg(mask, P, updates.device)
-    keys = _cuda.wide_keys(P, P * (P - 1) // 2, updates.device)
+    work = _cuda.wide_accumulators(P, N, 0, updates.device)
     _cuda.launch("masked_rolling_update_f32", updates.device,
                  updates.data_ptr(), out.data_ptr(), _cuda.ptr(m), P, N,
-                 int(seed), float(alpha), _cuda.ptr(keys))
-    if keys is None:
+                 int(seed), float(alpha), _cuda.ptr(work))
+    if P <= _cuda.FUSED_MAX_ROWS:
         masked_rolling_update_flat.launches += 1
     else:
         masked_rolling_update_flat.launches_wide += 1
@@ -60,11 +60,11 @@ def masked_field_wsum_flat(updates: torch.Tensor, seed: int, mask=None, *,
     if N == 0:
         return words
     m = _cuda.mask_arg(mask, P, updates.device)
-    keys = _cuda.wide_keys(P, P * (P - 1) // 2, updates.device)
+    work = _cuda.wide_accumulators(P, N, 1, updates.device)
     _cuda.launch("masked_field_wsum_f32", updates.device,
                  updates.data_ptr(), words.data_ptr(), _cuda.ptr(m), P, N,
-                 int(seed), float(2.0 ** frac_bits), _cuda.ptr(keys))
-    if keys is None:
+                 int(seed), float(2.0 ** frac_bits), _cuda.ptr(work))
+    if P <= _cuda.FUSED_MAX_ROWS:
         masked_field_wsum_flat.launches += 1
     else:
         masked_field_wsum_flat.launches_wide += 1

@@ -80,6 +80,36 @@ def mask_block(seed, pair, offs, scale: float = MASK_SCALE,
     return scale * (2.0 * u - 1.0)
 
 
+# On the CPU, torch hands float32 log, sqrt and cos to MKL's vector math
+# library, split across its OpenMP pool.  A process's first such pooled
+# call now and then returns one thread's share at about 5e-5 relative error
+# (9 of 400 fresh processes run 12 at a time on 8 cores; ROADMAP queue C).
+# A call on fewer elements than the pool's grain (2048) runs on the
+# calling thread alone and gives the same bits every time, so the CPU
+# computes them in chunks of SERIAL_CHUNK; the card runs each in one call.
+SERIAL_CHUNK = 1024
+
+
+def _serial(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for an elementwise torch function; on the CPU in chunks of
+    SERIAL_CHUNK elements (the same values, each call on one thread)."""
+    if x.device.type != "cpu" or x.numel() <= SERIAL_CHUNK:
+        return fn(x)
+    flat = x.reshape(-1)
+    out = torch.empty_like(flat)
+    for start in range(0, flat.numel(), SERIAL_CHUNK):
+        stop = start + SERIAL_CHUNK
+        fn(flat[start:stop], out=out[start:stop])
+    return out.reshape(x.shape)
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """sqrt(-2 log u1) cos(2 pi u2) in f32, each operation rounded as the
+    DP kernel rounds it."""
+    r = _serial(torch.sqrt, -2.0 * _serial(torch.log, u1))
+    return r * _serial(torch.cos, _TWO_PI_F32 * u2)
+
+
 def normal_block(seed, row, offs, device=None) -> torch.Tensor:
     """f32 standard-normal noise for a block of counters, the DP kernel's
     PRG: Box-Muller over two tagged uniform streams, u1 in (0, 1] (finite
@@ -89,8 +119,7 @@ def normal_block(seed, row, offs, device=None) -> torch.Tensor:
     b2 = mask_bits(seed ^ DP_TAG_B, row, offs, device)
     u1 = ((b1 >> 8) + 1).to(torch.float32) * _U24
     u2 = (b2 >> 8).to(torch.float32) * _U24
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    return r * torch.cos(_TWO_PI_F32 * u2)
+    return box_muller(u1, u2)
 
 
 def pair_list(n: int):

@@ -212,6 +212,7 @@ def masked_field_wsum_reference(updates: torch.Tensor, seed: int, mask=None,
 # against bit for bit.
 
 _U23 = 2.0 ** -23
+REGISTER_ROWS = 16   # the kernels that hold a column's rows in registers
 
 
 def split_pair_keys(seed, npairs: int, device=None) -> torch.Tensor:
@@ -286,15 +287,19 @@ def float_net_pads(seed, P: int, offs: torch.Tensor, mask=None):
 def masked_rolling_update_kernel_order(updates: torch.Tensor, seed: int,
                                        alpha, mask=None) -> torch.Tensor:
     """The fused float round in `masked_rolling_update_kernel`'s order:
-    net pads from `float_net_pads`, the survivors' shares summed in row
-    order 0..P-1 from 0, IEEE division by max(count, 1) (a full tensor,
-    so no backend divides by a reciprocal), and the blend u + alpha (agg
-    - u) rounded after each operation; dead rows pass through."""
+    net pads from `float_net_pads` (past REGISTER_ROWS rows the tile
+    walk's integers, `wide_int_net_pads`: the same ones), the survivors'
+    shares summed in row order 0..P-1 from 0, IEEE division by max(count,
+    1) (a full tensor, so no backend divides by a reciprocal), and the
+    blend u + alpha (agg - u) rounded after each operation; dead rows pass
+    through."""
     P, N = updates.shape
     dev = updates.device
     alive = _alive_rows(mask, P)
     u = updates.to(torch.float32)
-    net = float_net_pads(seed, P, torch.arange(N, device=dev), mask)
+    nets = int_net_pads if P <= REGISTER_ROWS else wide_int_net_pads
+    net = nets(seed, P, torch.arange(N, device=dev), mask).to(
+        torch.float32) * _U23
     total = torch.zeros((N,), dtype=torch.float32, device=dev)
     for p in range(P):
         if alive[p]:
@@ -325,22 +330,119 @@ def masked_field_wsum_kernel_order(updates: torch.Tensor, seed: int,
                                    frac_bits: int = field.FRAC_BITS):
     """The Z_2^32 share-sum in `masked_field_wsum_kernel`'s order: the pad
     words of the alive pairs through the split hash, accumulated per row
-    from 0 (+w on row i, -w on row j), then each survivor's encode added
-    and the shares summed with wrapping adds -> (N,) int32 bit
-    patterns."""
+    from 0 (+w on row i, -w on row j; past REGISTER_ROWS rows in the tile
+    walk, `wide_field_pads`), then each survivor's encode added and the
+    shares summed with wrapping adds -> (N,) int32 bit patterns."""
     P, N = updates.shape
     dev = updates.device
     alive = _alive_rows(mask, P)
-    pairs = masking.pair_list(P)
-    words = split_mask_bits(seed, len(pairs), torch.arange(N, device=dev))
-    pad = torch.zeros((P, N), dtype=torch.int64, device=dev)
-    for k, (i, j) in enumerate(pairs):
-        if alive[i] and alive[j]:
-            pad[i] = (pad[i] + words[k]) & M32
-            pad[j] = (pad[j] - words[k]) & M32
+    offs = torch.arange(N, device=dev)
+    if P > REGISTER_ROWS:
+        pad = wide_field_pads(seed, P, offs, mask)
+    else:
+        pairs = masking.pair_list(P)
+        words = split_mask_bits(seed, len(pairs), offs)
+        pad = torch.zeros((P, N), dtype=torch.int64, device=dev)
+        for k, (i, j) in enumerate(pairs):
+            if alive[i] and alive[j]:
+                pad[i] = (pad[i] + words[k]) & M32
+                pad[j] = (pad[j] - words[k]) & M32
     enc = encode_rows_clamp_first(updates, frac_bits)
     total = torch.zeros((N,), dtype=torch.int64, device=dev)
     for p in range(P):
         if alive[p]:
             total = (total + enc[p] + pad[p]) & M32
     return field.to_int32(total)
+
+
+# ----------------------------------------------------------------------
+# The P > 16 pair kernels' walk (csrc/secure_agg.cu, "The fused kernels at
+# P > 16"): rows in tiles of WIDE_TILE, each pair's word hashed once, tile
+# I's nets in registers and the later rows' in per-column accumulators,
+# summed in wrapping unsigned arithmetic.  The kernel-order models take
+# their nets and pads from here past REGISTER_ROWS rows.
+
+WIDE_TILE = 16
+NET32_ROWS = 256     # |net| < P 2^23: int32 holds the float net up to here
+
+
+def wide_pair_tiles(P: int) -> list:
+    """The walk: [(I, J, pairs)] for the tile pairs (I, J), I <= J, of
+    WIDE_TILE-row tiles in the kernel's order (I outer), `pairs` the (i,
+    j), i < j < P, with row i in tile I and j in tile J, in the order the
+    kernel hashes them (j's offset in its tile outer, i's inner)."""
+    T = -(-P // WIDE_TILE)
+    walk = []
+    for I in range(T):
+        for J in range(I, T):
+            walk.append((I, J, [
+                (WIDE_TILE * I + a, WIDE_TILE * J + b)
+                for b in range(WIDE_TILE)
+                for a in range(WIDE_TILE if J > I else b)
+                if WIDE_TILE * J + b < P]))
+    return walk
+
+
+def _wide_walk_sums(seed, P: int, offs: torch.Tensor, mask, shift: int,
+                    bits: int) -> torch.Tensor:
+    """(P, N) int64: each row's sum of its alive pairs' words >> `shift`
+    (+ as the pair's i, - as its j), accumulated as the walk does: tile
+    I's in its registers, a later row's in its accumulator, the two added
+    when tile I is done; every sum modulo 2^bits (bits = 64: int64's own
+    wrapping)."""
+    alive = torch.tensor(_alive_rows(mask, P), device=offs.device)
+    keys = split_pair_keys(seed, P * (P - 1) // 2, offs.device)
+    c = split_counter(offs)
+    wrap = (1 << bits) - 1 if bits < 64 else -1
+    T = -(-P // WIDE_TILE)
+    acc = torch.zeros((T * WIDE_TILE, offs.shape[0]), dtype=torch.int64,
+                      device=offs.device)
+    sums = torch.zeros((P, offs.shape[0]), dtype=torch.int64,
+                       device=offs.device)
+    net = None
+    for I, J, pairs in wide_pair_tiles(P) + [(T, T, [])]:
+        if J == I:          # tile I - 1's nets are whole
+            if net is not None:
+                rows = slice(WIDE_TILE * (I - 1), min(WIDE_TILE * I, P))
+                sums[rows] = (net[:rows.stop - rows.start] + acc[rows]) & wrap
+            net = torch.zeros_like(acc[:WIDE_TILE])
+        if not pairs:
+            continue
+        i, j = (torch.tensor(v, device=offs.device) for v in zip(*pairs))
+        k = i * (2 * P - i - 1) // 2 + (j - i - 1)
+        w = (mix32_tail(keys[k][:, None] ^ c[None, :]) >> shift) * (
+            alive[i] & alive[j])[:, None]
+        net.index_add_(0, i - WIDE_TILE * I, w)
+        if J == I:
+            net.index_add_(0, j - WIDE_TILE * I, -w)
+        else:
+            acc.index_add_(0, j, -w)
+        net &= wrap
+        acc &= wrap
+    return sums
+
+
+def wide_int_net_pads(seed, P: int, offs: torch.Tensor, mask=None):
+    """(P, N) int64: `int_net_pads` as the P > 16 float kernel sums them:
+    the words' top 24 bits walked modulo 2^32 (2^64 past NET32_ROWS rows),
+    the offset -2^23 d_p added when the row's tile is done, the result
+    read as a signed integer.  Exact, since |net| < P 2^23."""
+    bits = 32 if P <= NET32_ROWS else 64
+    net = _wide_walk_sums(seed, P, offs, mask, 8, bits)
+    alive = _alive_rows(mask, P)
+    count, below = sum(alive), 0
+    for p in range(P):
+        if alive[p]:
+            net[p] += (2 * below + 1 - count) << 23
+            below += 1
+    if bits == 32:
+        net &= M32
+        net = torch.where(net >= 2 ** 31, net - 2 ** 32, net)
+    return net
+
+
+def wide_field_pads(seed, P: int, offs: torch.Tensor, mask=None):
+    """(P, N) int64 in [0, 2^32): each row's pad words (+w as a pair's i,
+    -w as its j) as the P > 16 int kernel walks them, modulo 2^32."""
+    return _wide_walk_sums(seed, P, offs, mask, 0, 32)
+

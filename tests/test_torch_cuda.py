@@ -218,10 +218,30 @@ def _wide_case(P, N, dead, offset, device):
     return _at_offset(torch.from_numpy(u).to(device), offset), mask
 
 
+def _dead_tile(P):
+    """One whole 16-row tile of the pair walk: the middle one, or tile 0
+    where the middle one is the ragged last."""
+    T = -(-P // 16)
+    t = T // 2 if 16 * (T // 2 + 1) <= P else 0
+    return tuple(range(16 * t, 16 * t + 16))
+
+
+# P = 17, 32, 64, 128 at N = 3, a ragged N and the CNN's; each side of a
+# tile's edge with all rows alive, rows 0 and 4 dead or a tile dead; a dead
+# tile at each P; P = 433, whose accumulators pass shared memory (a global
+# workspace, 64-bit float nets); rows one element into their storage
+_WIDE_CASES = (
+    [(P, N, dead, 0) for P in (17, 32, 64, 128) for N in (3, 4097, 109634)
+     for dead in ((), (0, 4))]
+    + [(P, N, dead, 0) for P in (31, 33, 47, 48, 49) for N in (3, 4097)
+       for dead in ((), (0, 4), _dead_tile(P))]
+    + [(P, 4097, _dead_tile(P), 0) for P in (17, 32, 64, 128)]
+    + [(33, 4097, (0, 4), 1), (433, 3, (0, 4), 0),
+       (433, 129, _dead_tile(433), 0)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,N,dead,offset", [
-    (P, N, dead, 0) for P in (17, 32, 64, 128) for N in (3, 4097, 109634)
-    for dead in ((), (0, 4))] + [(33, 4097, (0, 4), 1)])
+@pytest.mark.parametrize("P,N,dead,offset", _WIDE_CASES)
 def test_fused_kernels_past_16_rows_match_plain(cuda, P, N, dead, offset):
     u, m = _wide_case(P, N, dead, offset, cuda)
     cols = min(N, _WIDE_WORDS // (P * (P - 1) // 2))

@@ -240,7 +240,8 @@ def test_split_hash_words_bitexact(seed):
 
 
 # past 16 rows the kernels (csrc/secure_agg.cu, the *_wide kernels) keep
-# the same arithmetic, with the net pad summed in int64: |net| < P 2^23
+# the same arithmetic, the net pad summed in wrapping int32 up to 256 rows
+# and int64 past them: |net| < P 2^23
 WIDE_PS = [17, 33, 64]
 
 
@@ -286,6 +287,81 @@ def test_kernel_orders_past_16_rows_match_jax(P, mask_kind):
         jref.masked_field_wsum_reference(
             jnp.asarray(u), jnp.asarray([seed], jnp.uint32),
             _jax_mask(mask))))
+
+
+# the P > 16 kernels' tile walk (ref.wide_pair_tiles, wide_int_net_pads,
+# wide_field_pads): each side of a 16-row tile's edge, and P = 128; all
+# rows alive, rows 0 and 4 dead, or a whole tile dead (the middle one, or
+# tile 0 where the middle one is the ragged last)
+WALK_PS = [17, 31, 32, 33, 47, 48, 49, 128]
+WALK_ALIVE = ["all", "rows_0_4_dead", "tile_dead"]
+WALK_N = 129
+
+
+def _walk_case(P, alive):
+    """(P, WALK_N) f32 rows and their (P,) mask, always an array (so JAX
+    compiles one reference per P); the first dead row holds inf, the
+    second NaN."""
+    rng = np.random.default_rng([P, WALK_ALIVE.index(alive)])
+    u = rng.standard_normal((P, WALK_N)).astype(np.float32)
+    mask = np.ones(P, np.float32)
+    if alive == "rows_0_4_dead":
+        mask[[0, 4]] = 0.0
+    elif alive == "tile_dead":
+        T = -(-P // 16)
+        t = T // 2 if 16 * (T // 2 + 1) <= P else 0
+        mask[16 * t:16 * t + 16] = 0.0
+    dead = np.nonzero(mask == 0)[0]
+    if dead.size:
+        u[dead[0]] = np.inf
+        u[dead[1]] = np.nan
+    return u, mask
+
+
+@pytest.mark.parametrize("alive", WALK_ALIVE)
+@pytest.mark.parametrize("P", WALK_PS)
+def test_tile_walk_matches_exact_nets_and_jax(P, alive):
+    """The walk visits every pair (i < j < P) exactly once, tile pairs (I,
+    J), I <= J, I outer, each pair inside its rows' tiles; its float nets
+    (int32 wrapping) equal `int_net_pads` and `float_net_pads` bit for
+    bit, its int pads the plain shares less their encodes; the kernel-
+    order rounds built on them equal JAX's share-sum and hold JAX's float
+    round within atol = P * 1e-6, dead rows bit-untouched."""
+    walk = ref.wide_pair_tiles(P)
+    T = -(-P // 16)
+    assert [(I, J) for I, J, _ in walk] == [
+        (I, J) for I in range(T) for J in range(I, T)]
+    seen = [pair for _, _, pairs in walk for pair in pairs]
+    assert len(seen) == len(set(seen))
+    assert sorted(seen) == masking.pair_list(P)
+    assert all(i // 16 == I and j // 16 == J
+               for I, J, pairs in walk for i, j in pairs)
+
+    u, mask = _walk_case(P, alive)
+    t, m = torch.from_numpy(u), torch.from_numpy(mask)
+    seed = 0xA11CE + P
+    offs = torch.arange(WALK_N)
+    nets = ref.wide_int_net_pads(seed, P, offs, m)
+    assert torch.equal(nets, ref.int_net_pads(seed, P, offs, m))
+    assert torch.equal(nets.to(torch.float32) * 2.0 ** -23,
+                       ref.float_net_pads(seed, P, offs, m))
+    pads = (ref.field_shares_reference(t, seed, m)
+            - field.encode_rows(t)) & masking.M32
+    assert torch.equal(ref.wide_field_pads(seed, P, offs, m), pads)
+
+    jseed = jnp.asarray([seed], jnp.uint32)
+    words = ref.masked_field_wsum_kernel_order(t, seed, m)
+    np.testing.assert_array_equal(_u32(words), np.asarray(
+        jref.masked_field_wsum_reference(jnp.asarray(u), jseed,
+                                         jnp.asarray(mask))))
+    got = ref.masked_rolling_update_kernel_order(t, seed, 0.7, m)
+    want = np.asarray(jref.masked_rolling_update_reference(
+        jnp.asarray(u), jseed, 0.7, jnp.asarray(mask)))
+    dead = mask == 0
+    np.testing.assert_allclose(got.numpy()[~dead], want[~dead],
+                               atol=P * 1e-6, rtol=0)
+    np.testing.assert_array_equal(got.numpy()[dead].view(np.uint32),
+                                  u[dead].view(np.uint32))
 
 
 @pytest.mark.parametrize("mask_kind", MASKS)
