@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the smoke run
     python3 chip_smoke.py --depth-probe   # the recurrent paths' depth cut
+    python3 chip_smoke.py --turns PARENT  # two kernels vs a parent tree's
 
 Builds the port's CUDA kernels from this checkout (each
 ``src/repro_torch/csrc/*.cu`` into its own library for sm_90a, one nvcc
@@ -48,7 +49,12 @@ after:
     kernel in prefill and decode.
   The recurrent families' depth is the largest whose training round
   peaks below 70 GiB on the 80 GB card; ``--depth-probe`` measures the
-  round's peak depth by depth up to the first that reaches it.
+  round's peak depth by depth up to the first that reaches it;
+* the models' prefill in fp32 compute (the reference's
+  ``models/layers.py:COMPUTE_DTYPE = float32``, set for this phase only):
+  one 1,024-token prompt of qwen3-0.6b and of hymba-1.5b, each cut to 2
+  layers at its published width, through the fp32 flash-attention kernel,
+  held against the plain attention path on the card.
 
 Before the full-width paths, small runs on the card are held against the
 same runs on the CPU (the CNN federation in each mode, under faults and
@@ -182,6 +188,27 @@ FLASH_CASES += [
     (2, 190, 8, 2, 128, torch.bfloat16, True, 0, "qkv"),
     (2, 190, 8, 2, 64, torch.bfloat16, True, 0, "odd"),
 ]
+# the fp32 kernel's tile edges (64 q rows a half-block, two q tiles a
+# block, 64 kv rows a tile): S on each side of one and two tiles and of a
+# pair, one q row, hd 80 and 32, non-causal, a window ending inside a kv
+# tile, hymba's prefill (GQA group 5, window 1024), fused and unaligned
+# layouts (the unaligned one takes the kernel's 4-byte copies)
+FLASH_CASES += [
+    (1, 1, 4, 2, 64, torch.float32, True, 0, ""),
+    (1, 63, 4, 2, 128, torch.float32, True, 0, ""),
+    (1, 65, 4, 2, 128, torch.float32, True, 0, ""),
+    (1, 127, 4, 2, 32, torch.float32, True, 0, ""),
+    (1, 129, 4, 2, 80, torch.float32, True, 0, ""),
+    (1, 191, 4, 2, 80, torch.float32, False, 0, ""),
+    (2, 193, 6, 3, 128, torch.float32, True, 100, ""),
+    (1, 1152, 25, 5, 64, torch.float32, True, 1024, ""),
+    (2, 190, 8, 2, 128, torch.float32, True, 0, "qkv"),
+    (2, 190, 8, 2, 64, torch.float32, True, 0, "odd"),
+]
+# fp32 q rows that no key may attend to (they are 0): (Sq, Skv, hd,
+# causal, window), Sq > Skv, across the tile edges
+FLASH_EMPTY_CASES = [(130, 70, 64, True, 8), (200, 65, 128, True, 16),
+                     (130, 40, 80, False, 8)]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FLASH_TIMED = (1, 1024, 16, 8, 128)       # qwen3's prefill at S = 1024
 FLASH_HYMBA, HYMBA_WINDOW = (1, 1152, 25, 5, 64), 1024   # hymba's prefill
@@ -741,12 +768,13 @@ def check_secure_agg_wide(kernels, dev):
 
 
 def check_flash(dev):
-    """The flash kernel against its plain version on every listed shape;
-    returns the largest |err| over the bf16 cases."""
+    """The flash kernel against its plain version on every listed shape
+    and on rows without keys; returns the largest |err| over the bf16
+    cases and over the fp32 ones."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    worst = 0.0
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for i, (B, S, Hq, Hkv, hd, dtype, causal, window, layout) in enumerate(
             FLASH_CASES):
         g = torch.Generator(dev).manual_seed(i)
@@ -762,12 +790,29 @@ def check_flash(dev):
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
         err = float((got.float() - want.float()).abs().max())
-        worst = max(worst, err)
+        worst[dtype] = max(worst[dtype], err)
         print(f"check flash_attention_bhsd (B,S,Hq,Hkv,hd)="
               f"{(B, S, Hq, Hkv, hd)} {str(dtype)[6:]} causal={causal} "
               f"window={window}{' ' + layout if layout else ''}: max |err| "
               f"{err:.3g} (tol {tol})")
-    return worst
+    tol = FLASH_TOL[torch.float32]
+    for i, (Sq, Skv, hd, causal, window) in enumerate(FLASH_EMPTY_CASES):
+        g = torch.Generator(dev).manual_seed(100 + i)
+        q, k, v = (torch.randn((1, h, s, hd), generator=g, device=dev)
+                   for h, s in ((4, Sq), (2, Skv), (2, Skv)))
+        got = fa_kernel.flash_attention_bhsd(q, k, v, causal=causal,
+                                             window=window)
+        want = fa_ref.attention_reference(q, k, v, causal=causal,
+                                          window=window)
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        empty = Skv + window - 1   # q - window >= the last key
+        assert bool((got[:, :, empty:] == 0).all()), (Sq, Skv, window)
+        err = float((got - want).abs().max())
+        worst[torch.float32] = max(worst[torch.float32], err)
+        print(f"check flash_attention_bhsd fp32 Sq={Sq} Skv={Skv} hd={hd} "
+              f"causal={causal} window={window}: rows {empty}.. without "
+              f"keys are 0; max |err| {err:.3g} (tol {tol})")
+    return worst[torch.bfloat16], worst[torch.float32]
 
 
 def flash_inputs(g, dev, B, S, Hq, Hkv, hd, dtype, layout):
@@ -1010,6 +1055,85 @@ def lm_card_vs_cpu(dev, arch):
     print(f"reference {arch}-reduced: card == CPU on prefill (B=2, S=77) + "
           f"4 decode steps, max |err| {worst:.2f} bf16 ulps of the largest "
           f"logit (bound 8); card launches {expected_launches(cfg, 1, 4)}")
+
+
+# the fp32-compute prefill: the reference's own switch
+# (models/layers.py:COMPUTE_DTYPE = float32) sends the models' prefill
+# attention through the fp32 flash kernel.  (arch, depth): published
+# widths, cut to 2 layers (the path's kernels run once a layer; the cut
+# keeps the phase to seconds); one prompt of FP32_PROMPT tokens
+FP32_PATHS = [("qwen3-0.6b", 2), ("hymba-1.5b", 2)]
+FP32_PROMPT = 1024
+# kernel path vs plain path: logits within 1e-4 of the largest |logit|
+# (both fp32; the flash and scan kernels sum in another order than the
+# plain paths, as REC_TOL_F32)
+FP32_LOGIT_TOL = 1e-4
+
+
+def fp32_prefill_path(dev, all_wrappers):
+    """For each FP32_PATHS model with COMPUTE_DTYPE = float32 (restored
+    after): one prefill of a FP32_PROMPT-token prompt through
+    `models.prefill(impl="auto")` (the kernels), every launch count 0
+    just before it and read just after, against the same call with
+    impl="chunked" (the plain paths) on the card; then one more call of
+    each, timed on the host clock between synchronizes (the first calls
+    carry the allocator's and the libraries' first-use costs).  Returns
+    the flash kernel's launches on the counted calls."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    wrappers = kernel_wrappers()
+    total = 0
+    before_dtype = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        for arch, depth in FP32_PATHS:
+            full = get_config(arch)
+            cfg = dataclasses.replace(full, n_layers=depth)
+            params = models.init_params(cfg,
+                                        torch.Generator(dev).manual_seed(0))
+            toks = torch.from_numpy(np.random.default_rng(5).integers(
+                1, cfg.vocab_size, (1, FP32_PROMPT)).astype(np.int32)).to(dev)
+            for w in all_wrappers:
+                w.launches = 0
+            got, _, _ = models.prefill(cfg, params, {"tokens": toks}, 2048,
+                                       impl="auto")
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+            want = expected_launches(cfg, 1, 0)
+            assert launches == want, (arch, launches, want)
+            total += launches["flash_attention_bhsd"]
+            plain, _, _ = models.prefill(cfg, params, {"tokens": toks},
+                                         2048, impl="chunked")
+            ms = {}
+            for impl in ("auto", "chunked"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                models.prefill(cfg, params, {"tokens": toks}, 2048,
+                               impl=impl)
+                torch.cuda.synchronize()
+                ms[impl] = (time.perf_counter() - t0) * 1e3
+            assert got.dtype == plain.dtype == torch.float32
+            assert bool(torch.isfinite(got).all())
+            scale = float(plain.abs().max())
+            err = float((got - plain).abs().max())
+            assert err <= FP32_LOGIT_TOL * scale, (arch, err, scale)
+            print(f"main path {arch} fp32 compute: {depth} layers, cut from "
+                  f"{full.n_layers} (published widths) | prefill of "
+                  f"{FP32_PROMPT} tokens {ms['auto']:.2f} ms through the "
+                  f"kernels, {ms['chunked']:.2f} ms plain (second calls) | "
+                  f"logits max |err| "
+                  f"{err:.3g} (bound {FP32_LOGIT_TOL:g} x {scale:.3g}) | "
+                  f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                           launches.items() if v))
+            del params, got, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        layers.COMPUTE_DTYPE = before_dtype
+    return total
 
 
 def hot_swap_on_card(dev, cfg):
@@ -1334,9 +1458,10 @@ def depth_probe(dev):
 
 
 def time_flash(dev):
-    """The flash kernel at qwen3's prefill shape (S = 1024, bf16, causal):
-    profiler median over 101 launches cycling 8 input sets (67 MB, more
-    than the L2), the plain version's and SDPA's time on the same sets."""
+    """The flash kernel at qwen3's prefill shape (S = 1024, causal), bf16
+    and fp32: profiler median over 101 launches cycling input sets larger
+    than the L2, the plain version's and SDPA's time on the same sets.
+    Returns {dtype: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -1388,13 +1513,15 @@ def time_flash(dev):
           f"{HYMBA_WINDOW}: kernel median {hy_ms * 1e3:.1f} us on the card "
           f"| bound {hy_bound * 1e3:.2f} us; kernel at "
           f"{hy_bound / hy_ms:.2%} of bound")
-    # the fp32 kernel (off the models' path) at qwen3's shape, its bound at
-    # the fp32 rate, SDPA on the same fp32 inputs
+    # the fp32 kernel (the models' prefill under an fp32 COMPUTE_DTYPE) at
+    # qwen3's shape, its bound at the fp32 rate, the plain version and
+    # SDPA on the same fp32 inputs
     B, S, Hq, Hkv, hd = FLASH_TIMED
     f32 = [[x.float() for x in st] for st in sets[:4]]
     f32_ms = kernel_median_ms(
         lambda i: fa_ops.flash_attention(*f32[i % 4], causal=True), 101,
         "flash_attention_f32_kernel")
+    p32_ms = cuda_ms(plain, f32, 4)
     f32_bhsd = [[x.transpose(1, 2).contiguous() for x in st] for st in f32]
     library(f32_bhsd[0])
     torch.cuda.synchronize()
@@ -1405,12 +1532,15 @@ def time_flash(dev):
     b32 = max(bytes32, ops32)
     print(f"time flash_attention_bhsd {FLASH_TIMED} fp32 causal: "
           f"flash_attention_f32_kernel median {f32_ms * 1e3:.1f} us on the "
-          f"card | SDPA fp32 {lib32_ms * 1e3:.1f} us "
+          f"card ({flops / f32_ms / 1e9:.1f} TFLOP/s) | plain "
+          f"{p32_ms * 1e3:.1f} us | SDPA fp32 {lib32_ms * 1e3:.1f} us "
           f"({', '.join(k[:40] for k in lib32)}) | bound {b32 * 1e3:.2f} us "
           f"by {'bytes' if bytes32 >= ops32 else 'operations'} (bytes "
           f"{bytes32 * 1e3:.2f} us, operations at the fp32 rate "
           f"{ops32 * 1e3:.2f} us); kernel at {b32 / f32_ms:.2%} of bound")
-    return k_ms, p_ms, b_ms, b_by, lib_ms
+    return {torch.bfloat16: (k_ms, p_ms, b_ms, b_by, lib_ms),
+            torch.float32: (f32_ms, p32_ms, b32, "bytes" if bytes32 >= ops32
+                            else "operations", lib32_ms)}
 
 
 def time_recurrent(dev, name, shape):
@@ -1546,27 +1676,16 @@ def time_secure_agg(dev, kernels, totals):
     return rows
 
 
-def wide_call_ms(fn, name, iters=21):
-    """Median device ms of one fn(i) call of a fused wrapper past 16
-    rows: its kernel's median; the DP kernel's plus its key kernel's
-    twice (one launch for each stream; the pair kernels stage their keys
-    themselves)."""
-    tags = {f"{name}_wide_kernel": 1}
-    if name == "clip_noise":
-        tags["wide_keys_kernel"] = 2
-    return kernel_median_ms(fn, iters, tags)
-
-
 WIDE_TIMED = (32, 128)
 
 
 def time_secure_agg_wide(dev, kernels, launches_wide):
     """Each fused wrapper's P > 16 kernel at (P, N_FULL) for P in
-    WIDE_TIMED, rows 0 and 4 dead: the device time of a call (of all it
-    launches, `wide_call_ms`; profiler medians over 21 calls cycling
-    inputs larger than the L2) beside its bound and the plain version's
-    time (3 calls).  Returns the kernels line's rows, the fleet's P = 32
-    as `ms`, P = 128 as `ms_p128`."""
+    WIDE_TIMED, rows 0 and 4 dead: the device time of its one kernel
+    (profiler median over 21 calls cycling inputs larger than the L2)
+    beside its bound and the plain version's time (3 calls).  Returns
+    the kernels line's rows, the fleet's P = 32 as `ms`, P = 128 as
+    `ms_p128`."""
     from repro_torch.kernels.dp import kernel as dp_kernel
     from repro_torch.kernels.dp import ref as dp_ref
     rows = []
@@ -1592,7 +1711,8 @@ def time_secure_agg_wide(dev, kernels, launches_wide):
                 run = lambda u, k=k: k["run"](u, dead)   # noqa: E731
                 plain = lambda u, k=k, c=chunk: k["plain"](  # noqa: E731
                     u, dead, chunk=c)
-            ms = wide_call_ms(lambda i: run(bufs[i % n_buf]), name)
+            ms = kernel_median_ms(lambda i: run(bufs[i % n_buf]), 21,
+                                  f"{name}_wide_kernel")
             p_ms = cuda_ms(plain, bufs, 3)
             bytes_ms, ops_ms = bound(name, P, N_FULL, P - 2)
             b_ms = max(bytes_ms, ops_ms)
@@ -1601,8 +1721,8 @@ def time_secure_agg_wide(dev, kernels, launches_wide):
             row.update({f"ms{tag}": ms, f"plain_ms{tag}": p_ms,
                         f"bound_ms{tag}": b_ms, f"bound_by{tag}": b_by})
             print(f"time {name} P > 16 at ({P}, {N_FULL}), rows 0 and 4 "
-                  f"dead: {ms * 1e3:.2f} us on the card (all a call "
-                  f"launches) | plain {p_ms * 1e3:.1f} us | bound "
+                  f"dead: {ms * 1e3:.2f} us on the card | plain "
+                  f"{p_ms * 1e3:.1f} us | bound "
                   f"{b_ms * 1e3:.2f} us by {b_by} (bytes "
                   f"{bytes_ms * 1e3:.2f} us, operations "
                   f"{ops_ms * 1e3:.2f} us); kernel at {b_ms / ms:.1%} of "
@@ -2231,11 +2351,86 @@ def fleet_main_path(dev, kernels, fed_kwargs, totals_wide):
         del fed, recorder
 
 
+# ----------------------------------------------------------------------
+# a redesigned kernel against its parent's, in turns
+
+def call_ms(fn, iters):
+    """Median device ms of one fn(i) call, all of its kernels: each
+    kernel's median times its launches a call, summed, over LEAD_IN +
+    `iters` calls traced by torch.profiler's CUDA activity.  A trace that
+    recorded fewer launches than calls is taken again, and after three
+    the calls are timed by CUDA events (`event_call_ms`)."""
+    calls = LEAD_IN + iters
+    for _ in range(3):
+        acts = device_us(fn, calls, host=False)
+        if sum(map(len, acts.values())) >= calls:
+            return sum(round(len(v) / calls) * float(np.median(v))
+                       for v in acts.values()) / 1e3
+    return event_call_ms(fn, iters)
+
+
+def time_kernels(dev):
+    """`--time-kernels SRC`: from the package under SRC (built into its
+    tree's own build directory), the fp32 flash kernel at FLASH_TIMED,
+    causal, and the DP kernel past 16 rows at (P, N_FULL), P in
+    WIDE_TIMED, rows 0 and 4 dead; each a call's device time (`call_ms`,
+    101 and 21 calls cycling inputs larger than the L2).  The flash
+    kernel also without the causal mask, where every q tile does the same
+    work.  Prints them as one JSON line."""
+    from repro_torch.kernels.dp import kernel as dp_kernel
+    from repro_torch.kernels.dp import ref as dp_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(dev).manual_seed(7)
+    B, S, Hq, Hkv, hd = FLASH_TIMED
+    sets = [[torch.randn((B, S, h, hd), generator=g, device=dev)
+             for h in (Hq, Hkv, Hkv)] for _ in range(4)]
+    out = {f"flash_f32{tag}_us": call_ms(
+        lambda i, c=causal: fa_ops.flash_attention(*sets[i % 4], causal=c),
+        101) * 1e3 for tag, causal in (("", True), ("_noncausal", False))}
+    del sets
+    for P in WIDE_TIMED:
+        n_buf = max(2, -(-60_000_000 // (P * N_FULL * 4)))
+        bufs = [torch.randn((P, N_FULL), generator=g, device=dev)
+                for _ in range(n_buf)]
+        norms = [dp_ref._row_norms(b) for b in bufs]
+        dead = torch.ones(P, device=dev)
+        dead[[0, 4]] = 0.0
+        out[f"clip_noise_p{P}_us"] = call_ms(
+            lambda i: dp_kernel.clip_noise_flat(
+                bufs[i % n_buf], norms[i % n_buf], 7, 0.5, 1.0, dead),
+            21) * 1e3
+        del bufs
+    print(json.dumps(out))
+
+
+def kernel_turns(parent):
+    """`--turns PARENT`: `--time-kernels` in four fresh processes, on the
+    package of the tree PARENT (the parent commit unpacked), this tree's,
+    this tree's and the parent's, so that both are timed on one card in
+    the same call.  Prints each process's line."""
+    trees = [("parent", Path(parent).resolve() / "src"),
+             ("this", ROOT / "src"), ("this", ROOT / "src"),
+             ("parent", Path(parent).resolve() / "src")]
+    for label, src in trees:
+        run = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--time-kernels",
+             str(src)], capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stdout[-4000:] + run.stderr[-4000:], file=sys.stderr)
+            return run.returncode
+        print(f"turns {label} ({src}): {run.stdout.strip().splitlines()[-1]}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    args = sys.argv[1:]
+    src = ROOT / "src"
+    if "--time-kernels" in args:
+        src = Path(args[args.index("--time-kernels") + 1]).resolve()
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _cuda
     from repro_torch.privacy.accountant import DPConfig
     from repro_torch.serving.harness import TINY_SERVE, TINY_SERVE_SSM
@@ -2250,9 +2445,14 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} (left as they are; "
           f"the federation's local step turns both off inside itself)")
     t_start = time.perf_counter()
-    if "--depth-probe" in sys.argv[1:]:
+    if "--depth-probe" in args:
         depth_probe(dev)
         return 0
+    if "--time-kernels" in args:
+        time_kernels(dev)
+        return 0
+    if "--turns" in args:
+        return kernel_turns(args[args.index("--turns") + 1])
 
     # ---- build: one nvcc per source, all started together -------------
     built = _cuda.build_all()
@@ -2282,7 +2482,7 @@ def main() -> int:
     check_secure_agg_wide(kernels, dev)
     legacy = legacy_kernels()
     check_legacy(dev, legacy)
-    flash_err = check_flash(dev)
+    flash_err, flash_err32 = check_flash(dev)
     wkv6_err = check_wkv6(dev)
     ssm_err = check_ssm(dev)
 
@@ -2322,7 +2522,8 @@ def main() -> int:
     rows = time_secure_agg(dev, kernels, totals)
     rows += time_secure_agg_wide(dev, kernels, totals_wide)
     rows += time_legacy(dev, legacy, legacy_launches)
-    timed = {"flash_attention_bhsd": time_flash(dev)}
+    flash = time_flash(dev)
+    timed = {"flash_attention_bhsd": flash[torch.bfloat16]}
     for name, prefill, decode in (("wkv6_bthd", WKV6_TIMED, WKV6_DECODE),
                                   ("ssm_scan_btd", SSM_TIMED, SSM_DECODE)):
         timed[name] = time_recurrent(dev, name, prefill) + (None,)
@@ -2332,6 +2533,8 @@ def main() -> int:
     for arch, depth, lr in LM_PATHS:
         for name, n in lm_main_path(dev, arch, depth, lr, wrappers).items():
             lm_launches[name] += n
+    fp32_launches = fp32_prefill_path(dev, wrappers)
+    assert fp32_launches > 0, "the fp32 flash kernel never launched"
     errs = {"flash_attention_bhsd": flash_err, "wkv6_bthd": wkv6_err,
             "ssm_scan_btd": ssm_err}
     for name, (source, replaces) in LM_KERNEL_SOURCES.items():
@@ -2342,6 +2545,14 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
+    # the fp32 kernel, launched by the fp32-compute prefill
+    k_ms, p_ms, b_ms, b_by, lib_ms = flash[torch.float32]
+    source, replaces = LM_KERNEL_SOURCES["flash_attention_bhsd"]
+    rows.append({"name": "flash_attention_bhsd_f32", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": fp32_launches, "max_abs_err": flash_err32,
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms})
     assert all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
     print(f"smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 

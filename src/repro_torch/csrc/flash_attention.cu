@@ -55,10 +55,51 @@
 // or a stride that is not a multiple of 8 elements) take the same kernel
 // with plain loads in place of TMA.
 //
-// flash_attention_f32_kernel (fp32 inputs; off the models' path).  The
-// port's first kernel, kept for fp32: 256 threads per 64-row q tile, four
-// threads per q row, fp32 FMAs fed from shared memory, so shared-memory
-// bandwidth bounds it.
+// flash_attention_f32_kernel (fp32 inputs: the models' prefill when
+// models/layers.py's COMPUTE_DTYPE is float32).  The reference keeps p and
+// v in fp32, so both products stay on the fp32 FMA pipe (TF32 wgmma keeps
+// about 3 digits).  At the prefill shape above the function's 4.30 GFLOP
+// take 64.2 us at the 67 TFLOP/s fp32 rate: it is bound by operations,
+// and the kernel's task is to keep that pipe fed.
+//   * Register-blocked outer products.  A half-block of 4 warps owns 64 q
+//     rows; lane 8 rg + cg of warp w holds rows 16 w + rg + 4 i (i < 4)
+//     against kv columns cg + 8 j (j < 8) of S, and the same rows against
+//     16-byte chunks cg + 8 m of O.  Per 16-byte chunk of d, S takes 4 q
+//     and 8 k vector loads for 128 FMAs; O takes, per key, one vector
+//     load of P and hd/32 (hd/16 at hd 80) of V for hd/2 FMAs.  Q and K
+//     rows keep chunk c at c ^ (row & 7) (hd rounded up to 32 floats), so
+//     the 4 rows and the 8 columns a warp reads at once fall in distinct
+//     banks; P goes through a per-warp buffer (key-major, a thread's 4
+//     rows contiguous).
+//   * 64-row kv tiles arrive by cp.async into one K and one V buffer: K's
+//     next tile is in flight during P V, V's next during the next S; two
+//     barriers of the half's 128 threads a tile, each behind a wait for
+//     the one copy in flight.  A half uses 112 KB of shared memory at hd
+//     128, so a block's two halves fill an SM.
+//   * The online softmax runs in registers in the exp2 domain (scores
+//     pre-scaled by scale * log2(e)); a row's max and sum combine over
+//     the 8 lanes of its row group with shuffles.  Only a tile that
+//     crosses the causal diagonal, the window's far edge or Skv is masked
+//     element by element.
+//   * A block takes a pair of q tiles of one (b, h), the last with the
+//     first, the second last with the second: under a causal mask every
+//     block then does about the same work (n_qt + 1 kv tiles), and one
+//     wave of blocks ends together.  Its two halves split those kv tiles
+//     evenly: half 0 takes the heavy tile's first ceil(W / 2), half 1 the
+//     light tile's and the rest of the heavy tile's; half 1 leaves its
+//     partial softmax of the heavy tile (max, sum, accumulators) in its
+//     shared memory and half 0 merges it after a block barrier.  With the
+//     heavy tile left to one half, that half ran alone for most of the
+//     block's time, 177 us at the shape above against 150 (PERF.md).
+// Operands that are not 16-byte aligned take the same kernel with 4-byte
+// copies.  At the shape above it takes about 150 us, 43% of its bound.
+// What holds it there: a tile's loop issues about 10,700 instructions a
+// thread for its 8,192 FFMAs (the cp.async address arithmetic and the
+// softmax take most of the rest), and a block fills an SM with 8 warps,
+// 2 a scheduler, at 254 registers a thread, so a shared load's latency
+// can leave a scheduler idle.  Without the causal mask, where no tile is
+// masked or merged, it runs at 34 TFLOP/s, half the fp32 rate; cutting
+// the barriers from four a tile to two moved nothing (PERF.md).
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -78,133 +119,428 @@ struct Strides {
 
 constexpr float kNegInf = -1e30f;
 
+// 16-byte rows: the pointer aligned and every stride a multiple of E
+// elements (E of them in 16 bytes)
+template <int E>
+bool aligned16(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % E == 0 &&
+         s.h % E == 0 && s.s % E == 0;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // ----------------------------------------------------------------------
-// fp32: the first kernel
+// fp32: register-blocked outer products on the FMA pipe
 
-constexpr int kBQ = 64;               // q rows per block
-constexpr int kBK = 32;               // kv rows per tile
-constexpr int kLanes = 4;             // threads per q row
-constexpr int kThreads = kBQ * kLanes;
-constexpr int kCols = kBK / kLanes;   // scores per thread per tile
+constexpr int kF32Rows = 64;             // q rows of a half's tile
+constexpr int kF32Keys = 64;             // kv rows of a tile
+constexpr int kF32Half = 128;            // threads of a half: 4 warps
+constexpr int kF32Block = 2 * kF32Half;  // two halves, two q tiles
 
+// Q and K rows in shared memory: hd rounded up to a multiple of 32
+// floats, 16-byte chunk c of row r stored at chunk c ^ (r & 7)
 template <int HD>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) *
-         ((size_t)(kBQ + 2 * kBK) * (HD + 1) + (size_t)kBQ * (kBK + 1));
+__host__ __device__ constexpr int f32_ld() {
+  return (HD + 31) / 32 * 32;
+}
+
+// a half's floats: Q and K (64 rows of f32_ld), V (64 rows of HD), then
+// each warp's P (64 keys x its 16 rows)
+template <int HD>
+__host__ __device__ constexpr int f32_half_floats() {
+  return 2 * kF32Rows * f32_ld<HD>() + kF32Keys * HD + kF32Keys * kF32Rows;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t f32_smem_bytes() {
+  return 2 * sizeof(float) * (size_t)f32_half_floats<HD>();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// component e of a vector (e known at compile time)
+__device__ __forceinline__ float elem(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+__device__ __forceinline__ float elem(const float2& x, int e) {
+  return e == 0 ? x.x : x.y;
+}
+// a barrier of one half's 128 threads (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void half_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kF32Half) : "memory");
+}
+
+// Rows [r0, r0 + 64) of a (rows, HD) fp32 matrix with row stride `ld`
+// into shared memory rows of LD floats by cp.async, rows at or past
+// `limit` as zeros; SWZ stores 16-byte chunk c of row r at chunk c ^ (r &
+// 7).  VEC copies 16-byte chunks, else single floats (operands that are
+// not 16-byte aligned).
+template <int HD, int LD, bool SWZ, bool VEC>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int64_t ld, int r0, int limit,
+                                              int t) {
+  constexpr int kPer = VEC ? 4 : 1;
+  constexpr int kRowItems = HD / kPer;
+#pragma unroll 4
+  for (int i = t; i < 64 * kRowItems; i += kF32Half) {
+    const int r = i / kRowItems, d = i % kRowItems * kPer;
+    const bool in = r0 + r < limit;
+    const float* g = in ? src + (int64_t)(r0 + r) * ld + d : src;
+    const int col = SWZ ? ((d >> 2) ^ (r & 7)) * 4 + (d & 3) : d;
+    if constexpr (VEC)
+      cp_async16(dst + r * LD + col, g, in);
+    else
+      cp_async4(dst + r * LD + col, g, in);
+  }
+}
+
+// Thread layout of a half: lane 8 rg + cg of warp w holds rows 16 w + rg +
+// 4 i (i < 4) of the q tile against kv columns cg + 8 j (j < 8) of S, and
+// the same rows against the 16-byte (8-byte at hd 80) chunks cg + 8 m of O
+template <int HD>
+struct F32Layout {
+  static constexpr int LD = f32_ld<HD>();
+  static constexpr int VW = HD % 32 == 0 ? 4 : 2;  // floats of an O chunk
+  static constexpr int kChunks = HD / (8 * VW);    // a thread's of a row
+  static constexpr int kDims = kChunks * VW;       // a thread's dims a row
+};
+
+// The kv tiles the band of q rows [q0, q0 + 64) can reach: k <= the last
+// q row when causal, k > the first q row - window when windowed.  Returns
+// their count; *k_begin the first tile's first key.
+__device__ __forceinline__ int f32_band(int q0, int sq, int skv, int causal,
+                                        int window, int* k_begin) {
+  const int q_last = min(q0 + kF32Rows, sq) - 1;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  *k_begin = window > 0 ? max(0, q0 - window + 1) / kF32Keys * kF32Keys : 0;
+  return k_end > *k_begin ? (k_end - *k_begin + kF32Keys - 1) / kF32Keys
+                          : 0;
+}
+
+// One half's online softmax over kv tiles [t0, t1) of the band of the q
+// tile at q0 (tile t starts at key k_begin + 64 t), into m_run, l_run
+// (exp2 domain) and acc.  On return every thread of the half is done with
+// its shared memory.
+template <int HD, bool VEC>
+__device__ __forceinline__ void attend_f32(
+    const float* qb, const float* kb, const float* vb, int64_t qss,
+    int64_t kss, int64_t vss, int q0, int sq, int skv, int k_begin, int t0,
+    int t1, int causal, int window, float scale_log2, float* smem, int bar,
+    float (&m_run)[4], float (&l_run)[4],
+    float (&acc)[4][F32Layout<HD>::kDims]) {
+  using Lay = F32Layout<HD>;
+  constexpr int LD = Lay::LD, VW = Lay::VW, kDims = Lay::kDims;
+  using VecW = std::conditional_t<VW == 4, float4, float2>;
+  if (t0 >= t1) return;
+  const int t = threadIdx.x % kF32Half;
+  const int warp = t >> 5, rg = (t & 31) >> 3, cg = t & 7;
+  float* sq_tile = smem;
+  float* sk = sq_tile + kF32Rows * LD;
+  float* sv = sk + kF32Keys * LD;
+  float* sp = sv + kF32Keys * HD + warp * kF32Keys * 16;  // this warp's P
+
+  // cp.async: Q with K's first tile, then V's; in the loop K's next tile
+  // during P V, V's next during the next scores.  Two barriers a tile,
+  // each behind a wait for the one group in flight: after the scores (K
+  // free, V and P visible) and after P V (V free, K's next visible).
+  const int k_first = k_begin + t0 * kF32Keys;
+  load_rows_f32<HD, LD, true, VEC>(sq_tile, qb, qss, q0, sq, t);
+  load_rows_f32<HD, LD, true, VEC>(sk, kb, kss, k_first, skv, t);
+  cp_async_commit();
+  load_rows_f32<HD, HD, false, VEC>(sv, vb, vss, k_first, skv, t);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and K's first tile (this thread's copies)
+  half_sync(bar);      // everyone's
+
+  // row i's Q at q_row + 4 i LD, chunk c at (c ^ (rg + 4 i & 7)); column
+  // j's K at k_row + 8 j LD, chunk c at (c ^ cg)
+  const float* q_row = sq_tile + (16 * warp + rg) * LD;
+  const float* k_row = sk + cg * LD;
+  for (int it = t0; it < t1; ++it) {
+    const int k0 = k_begin + it * kF32Keys;
+
+    // S = Q K^T: per 16-byte chunk of d, 12 vector loads for 128 FMAs
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < HD / 4; c += 8) {
+#pragma unroll
+      for (int cb = 0; cb < 8; ++cb) {
+        if (HD % 32 != 0 && c + cb >= HD / 4) break;
+        float4 qv[4], kv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              q_row + 4 * i * LD + 4 * (c + (cb ^ ((rg + 4 * i) & 7))));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              k_row + 8 * j * LD + 4 * (c + (cb ^ cg)));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
+    }
+
+    // the online softmax in the exp2 domain; only a tile that crosses
+    // the causal diagonal, the window's far edge or Skv is masked
+    const bool edge = k0 + kF32Keys > skv ||
+                      (causal && k0 + kF32Keys - 1 > q0) ||
+                      (window > 0 && q0 + kF32Rows - 1 - k0 >= window);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + 16 * warp + rg + 4 * i;
+      uint32_t ok = 0xffu;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] *= scale_log2;
+        if (edge) {
+          const int kpos = k0 + cg + 8 * j;
+          const int diff = qpos - kpos;
+          if (!(kpos < skv && (!causal || diff >= 0) &&
+                (window <= 0 || diff < window))) {
+            ok &= ~(1u << j);
+            s[i][j] = kNegInf;
+          }
+        }
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float corr = exp2f(m_run[i] - m_new);
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = (ok >> j) & 1u ? exp2f(s[i][j] - m_new) : 0.0f;
+        psum += s[i][j];
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 4);
+      l_run[i] = l_run[i] * corr + psum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < kDims; ++e) acc[i][e] *= corr;
+    }
+    // P to this warp's buffer: key j's 16 rows, thread rows at 4 rg
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float4*>(sp + (cg + 8 * j) * 16 + 4 * rg) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+
+    cp_async_wait<0>();  // this V tile
+    half_sync(bar);      // K read by every warp; V and P visible
+    if (it + 1 < t1) {
+      load_rows_f32<HD, LD, true, VEC>(sk, kb, kss, k0 + kF32Keys, skv, t);
+      cp_async_commit();
+    }
+
+    // O += P V: per key, one 16-byte load of P, kChunks of V
+    const float* p_col = sp + 4 * rg;
+    const float* v_col = sv + VW * cg;
+#pragma unroll 8
+    for (int j = 0; j < kF32Keys; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(p_col + 16 * j);
+#pragma unroll
+      for (int m = 0; m < Lay::kChunks; ++m) {
+        const VecW vv = *reinterpret_cast<const VecW*>(
+            v_col + j * HD + 8 * VW * m);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            acc[i][m * VW + e] = fmaf(elem(p, i), elem(vv, e),
+                                      acc[i][m * VW + e]);
+      }
+    }
+    cp_async_wait<0>();  // K's next tile
+    half_sync(bar);      // V read by every warp; K's next visible
+    if (it + 1 < t1) {
+      load_rows_f32<HD, HD, false, VEC>(sv, vb, vss, k0 + kF32Keys, skv, t);
+      cp_async_commit();
+    }
+  }
+}
+
+// A half's rows of the q tile at q0, acc / l, into o (rows past sq stay
+// unwritten).
+template <int HD, bool VEC>
+__device__ __forceinline__ void store_f32(
+    float* ob, int64_t oss, int q0, int sq, const float (&l_run)[4],
+    const float (&acc)[4][F32Layout<HD>::kDims]) {
+  using Lay = F32Layout<HD>;
+  constexpr int VW = Lay::VW;
+  const int t = threadIdx.x % kF32Half;
+  const int warp = t >> 5, rg = (t & 31) >> 3, cg = t & 7;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 16 * warp + rg + 4 * i;
+    if (r >= sq) continue;
+    const float denom = fmaxf(l_run[i], 1e-30f);
+    float* row = ob + (int64_t)r * oss + VW * cg;
+#pragma unroll
+    for (int m = 0; m < Lay::kChunks; ++m) {
+      float* dst = row + 8 * VW * m;
+      if constexpr (VEC && VW == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            acc[i][4 * m] / denom, acc[i][4 * m + 1] / denom,
+            acc[i][4 * m + 2] / denom, acc[i][4 * m + 3] / denom);
+      } else if constexpr (VEC) {
+        *reinterpret_cast<float2*>(dst) = make_float2(
+            acc[i][2 * m] / denom, acc[i][2 * m + 1] / denom);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) dst[e] = acc[i][m * VW + e] / denom;
+      }
+    }
+  }
+}
+
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(kF32Block, 1)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int group, int sq, int skv, Strides qs,
-                           Strides ks, Strides vs, Strides os, int causal,
-                           int window, float scale) {
-  static_assert(HD % kLanes == 0, "hd must split over the row's lanes");
-  constexpr int LD = HD + 1;          // padded row stride of q, k, v
-  constexpr int PLD = kBK + 1;        // padded row stride of p
-  constexpr int kDims = HD / kLanes;  // outputs per thread
-  extern __shared__ float smem[];
-  float* sq_tile = smem;              // kBQ x LD
-  float* sk = sq_tile + kBQ * LD;     // kBK x LD
-  float* sv = sk + kBK * LD;          // kBK x LD
-  float* sp = sv + kBK * LD;          // kBQ x PLD
+                           int hq, int nb, int group, int sq, int skv,
+                           Strides qs, Strides ks, Strides vs, Strides os,
+                           int causal, int window, float scale_log2) {
+  static_assert(HD % 16 == 0 && HD <= 128, "hd: a multiple of 16, <= 128");
+  constexpr int kDims = F32Layout<HD>::kDims;
+  extern __shared__ __align__(16) float smem_f32[];
+  const int half = threadIdx.x / kF32Half;
+  const int t = threadIdx.x % kF32Half;
+  const int bar = 1 + half;
+  float* smem = smem_f32 + half * f32_half_floats<HD>();
 
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes;
-  const int lane = tid % kLanes;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // block x: (b, h) = x % (B Hq), pair x / (B Hq) of q tiles: the last
+  // ("heavy") with the first ("light"), the second last with the second,
+  // ...; the middle tile of an odd count alone.  Their kv tiles, W in
+  // all, are split evenly: half 0 takes the heavy tile's first
+  // ceil(W / 2), half 1 the light tile's and the rest of the heavy
+  // tile's, whose partial softmax half 0 then merges.
+  const int n_qt = (sq + kF32Rows - 1) / kF32Rows;
+  const int n_bh = hq * nb;
+  const int pair = (int)(blockIdx.x / n_bh);
+  const int bh = (int)(blockIdx.x % n_bh);
+  const int h = bh % hq, b = bh / hq;
   const int hk = h / group;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
+  float* ob = o + b * os.b + h * os.h;
+  const int qh = (n_qt - 1 - pair) * kF32Rows, ql = pair * kF32Rows;
+  const bool light = ql < qh;
+  int kh = 0, kl = 0;
+  const int th = f32_band(qh, sq, skv, causal, window, &kh);
+  const int tl = light ? f32_band(ql, sq, skv, causal, window, &kl) : 0;
+  const int split = min(th, (th + tl + 1) / 2);
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    const int s = q0 + r;
-    sq_tile[r * LD + d] = s < sq ? qb[s * qs.s + d] : 0.0f;
-  }
-
-  // the kv tiles the band can reach: k <= the tile's last q row when
-  // causal, k > its first q row - window when windowed
-  const int q_last = min(q0 + kBQ, sq) - 1;
-  const int k_end = causal ? min(skv, q_last + 1) : skv;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
-
-  const int qpos = q0 + row;
-  float m = kNegInf, l = 0.0f;
-  float acc[kDims];
+  float m_run[4], l_run[4], acc[4][kDims];
+  auto reset = [&]() {
 #pragma unroll
-  for (int i = 0; i < kDims; ++i) acc[i] = 0.0f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the last tile's k, v and p are read
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD;
-      const int s = k0 + r;
-      const bool in = s < skv;
-      sk[r * LD + d] = in ? kb[s * ks.s + d] : 0.0f;
-      sv[r * LD + d] = in ? vb[s * vs.s + d] : 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      m_run[i] = kNegInf;
+      l_run[i] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < kDims; ++e) acc[i][e] = 0.0f;
     }
-    __syncthreads();
-
-    float sc[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) sc[j] = 0.0f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = sq_tile[row * LD + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        sc[j] += qd * sk[(lane + kLanes * j) * LD + d];
+  };
+  reset();
+  if (half == 0) {
+    attend_f32<HD, VEC>(qb, kb, vb, qs.s, ks.s, vs.s, qh, sq, skv, kh, 0,
+                        split, causal, window, scale_log2, smem, bar, m_run,
+                        l_run, acc);
+  } else {
+    if (light) {
+      attend_f32<HD, VEC>(qb, kb, vb, qs.s, ks.s, vs.s, ql, sq, skv, kl, 0,
+                          tl, causal, window, scale_log2, smem, bar, m_run,
+                          l_run, acc);
+      store_f32<HD, VEC>(ob, os.s, ql, sq, l_run, acc);
+      reset();
     }
-
-    bool ok[kCols];
-    float tile_max = kNegInf;
+    attend_f32<HD, VEC>(qb, kb, vb, qs.s, ks.s, vs.s, qh, sq, skv, kh,
+                        split, th, causal, window, scale_log2, smem, bar,
+                        m_run, l_run, acc);
+    // the heavy tile's partial softmax, thread t's values at t + 128 e
+    float* part = smem;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int kpos = k0 + lane + kLanes * j;
-      const int diff = qpos - kpos;
-      ok[j] = kpos < skv && (!causal || diff >= 0) &&
-              (window <= 0 || diff < window);
-      sc[j] = ok[j] ? sc[j] * scale : kNegInf;
-      tile_max = fmaxf(tile_max, sc[j]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    float psum = 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      part[i * kF32Half + t] = m_run[i];
+      part[(4 + i) * kF32Half + t] = l_run[i];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float p = ok[j] ? expf(sc[j] - m_new) : 0.0f;
-      sp[row * PLD + lane + kLanes * j] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();  // the row's four lanes share one warp
-
-#pragma unroll
-    for (int i = 0; i < kDims; ++i) acc[i] *= corr;
-    for (int c = 0; c < kBK; ++c) {
-      const float p = sp[row * PLD + c];
-#pragma unroll
-      for (int i = 0; i < kDims; ++i)
-        acc[i] += p * sv[c * LD + lane + kLanes * i];
+      for (int e = 0; e < kDims; ++e)
+        part[(8 + i * kDims + e) * kF32Half + t] = acc[i][e];
     }
   }
-
-  if (qpos < sq) {
-    const float denom = fmaxf(l, 1e-30f);
-    float* ob = o + b * os.b + h * os.h + qpos * os.s;
+  __syncthreads();
+  if (half == 1) return;
+  // half 0 merges half 1's part of the heavy tile into its own: thread t
+  // of each half holds the same rows and dims
+  const float* part = smem_f32 + f32_half_floats<HD>();
 #pragma unroll
-    for (int i = 0; i < kDims; ++i) ob[lane + kLanes * i] = acc[i] / denom;
+  for (int i = 0; i < 4; ++i) {
+    const float m1 = part[i * kF32Half + t];
+    const float l1 = part[(4 + i) * kF32Half + t];
+    const float m = fmaxf(m_run[i], m1);
+    const float c0 = exp2f(m_run[i] - m), c1 = exp2f(m1 - m);
+    l_run[i] = l_run[i] * c0 + l1 * c1;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e)
+      acc[i][e] = acc[i][e] * c0 +
+                  part[(8 + i * kDims + e) * kF32Half + t] * c1;
   }
+  store_f32<HD, VEC>(ob, os.s, qh, sq, l_run, acc);
+}
+
+template <int HD, bool VEC>
+int launch_f32_v(const void* q, const void* k, const void* v, void* o, int b,
+                 int hq, int group, int sq, int skv, Strides qs, Strides ks,
+                 Strides vs, Strides os, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes<HD>();
+  auto kernel = flash_attention_f32_kernel<HD, VEC>;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem_once(smem_set, kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (sq + kF32Rows - 1) / kF32Rows;
+  const int64_t blocks = (int64_t)((n_qt + 1) / 2) * hq * b;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kF32Block, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, hq, b,
+      group, sq, skv, qs, ks, vs, os, causal, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -212,17 +548,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int group, int sq, int skv, Strides qs, Strides ks,
                Strides vs, Strides os, int causal, int window, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<HD>();
-  auto kernel = flash_attention_f32_kernel<HD>;
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = allow_smem_once(smem_set, kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)hq,
-                  (unsigned)b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, group,
-      sq, skv, qs, ks, vs, os, causal, window, scale);
-  return (int)cudaGetLastError();
+  if (aligned16<4>(q, qs) && aligned16<4>(k, ks) && aligned16<4>(v, vs) &&
+      aligned16<4>(o, os))
+    return launch_f32_v<HD, true>(q, k, v, o, b, hq, group, sq, skv, qs, ks,
+                                  vs, os, causal, window, scale, stream);
+  return launch_f32_v<HD, false>(q, k, v, o, b, hq, group, sq, skv, qs, ks,
+                                 vs, os, causal, window, scale, stream);
 }
 
 // ----------------------------------------------------------------------
@@ -241,10 +572,6 @@ template <int HD>
 constexpr size_t bf16_smem_bytes() {
   return (size_t)(kWGs * kM + 2 * kStages * kN) * HD * sizeof(bf16) +
          (kStages + 1) * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // wgmma's shared-memory matrix descriptor, no swizzle: start address,
@@ -781,22 +1108,18 @@ int launch_bf16_v(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// TMA and the paired bf16 stores need 16-byte aligned rows: every
-// pointer aligned and every stride a multiple of 8 elements.  With no key
-// (Skv = 0) a tensor map cannot be encoded (a zero dimension), and no
-// tile is loaded: the plain-load kernel writes the rows' zeros.
-bool aligned16(const void* p, Strides s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 &&
-         s.h % 8 == 0 && s.s % 8 == 0;
-}
+// TMA and the paired bf16 stores need 16-byte aligned rows (aligned16<8>).
+// With no key (Skv = 0) a tensor map cannot be encoded (a zero
+// dimension), and no tile is loaded: the plain-load kernel writes the
+// rows' zeros.
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
                 int hq, int hkv, int sq, int skv, Strides qs, Strides ks,
                 Strides vs, Strides os, int causal, int window, float scale,
                 cudaStream_t stream) {
-  if (skv > 0 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs) &&
-      aligned16(o, os))
+  if (skv > 0 && aligned16<8>(q, qs) && aligned16<8>(k, ks) &&
+      aligned16<8>(v, vs) && aligned16<8>(o, os))
     return launch_bf16_v<HD, true>(q, k, v, o, b, hq, hkv, sq, skv, qs, ks,
                                    vs, os, causal, window, scale, stream);
   return launch_bf16_v<HD, false>(q, k, v, o, b, hq, hkv, sq, skv, qs, ks,

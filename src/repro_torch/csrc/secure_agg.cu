@@ -19,8 +19,9 @@
 // Those three hold P <= 16 rows in registers.  Past 16 rows the same C
 // entry points launch kernels of the same three functions that walk the
 // rows in tiles (masked_rolling_update_wide_kernel,
-// masked_field_wsum_wide_kernel) or loop over them (clip_noise_wide_kernel;
-// the section "The fused kernels at P > 16").
+// masked_field_wsum_wide_kernel; the section "The fused kernels at P >
+// 16") or a block for each group of 16 (clip_noise_wide_kernel; "The DP
+// kernel past 16 rows").
 //
 // and the legacy two-stage round's two aggregates of pre-masked shares
 // (the explicit-dataflow oracle the fused round was built against; see
@@ -123,6 +124,7 @@
 // every float expression rounds where the plain PyTorch version rounds.
 // The encode rounds half to even (as jnp.round and torch.round); the DP
 // noise uses the accurate logf / sqrtf / cosf, never the __ intrinsics.
+#include <algorithm>
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
@@ -392,8 +394,9 @@ inline unsigned blocks_for(int64_t n) {
 //
 // The kernels above keep a column's P rows, the launch's keys (by value)
 // and the alive bits (one warp ballot) in registers, so they stop at P =
-// kMaxRows.  Past it the entry points launch the three kernels below, one
-// column a thread, through the same split hash.
+// kMaxRows.  Past it the entry points launch the two pair walks below and
+// the DP kernel of the next section, one column a thread, through the
+// same split hash.
 //
 // masked_rolling_update_wide_kernel and masked_field_wsum_wide_kernel walk
 // the pairs so that each pair's word is hashed once, added to row i's net
@@ -453,25 +456,6 @@ inline unsigned blocks_for(int64_t n) {
 // Z_2^32) and is bound by bytes, 4.3 us at P = 32; the kernel keeps the
 // pads, as the TPU kernel and the P <= 16 one do, so it does the float
 // kernel's hashing less the shift.  PERF.md has their times.
-//
-// clip_noise_wide_kernel keeps the plainer first form: its 2P stream keys
-// in a device workspace that wide_keys_kernel writes before the main
-// launch, rows looped, row p's participation read from mask[p] and its
-// factor computed for each column (the same IEEE division as once a row),
-// its noise as the P <= 16 kernel computes it; dead rows are copied.  Its
-// function is bound by bytes (8.4 us at P = 32).
-
-// keys[k] = split_key(stream_key(seed, k)) for k < count.
-__global__ void __launch_bounds__(kThreads)
-wide_keys_kernel(uint32_t seed, int64_t count, uint32_t* __restrict__ keys) {
-  const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (k < count) keys[k] = split_key(stream_key(seed, (uint32_t)k));
-}
-
-void launch_wide_keys(uint32_t seed, int64_t count, uint32_t* keys,
-                      cudaStream_t s) {
-  wide_keys_kernel<<<blocks_for(count), kThreads, 0, s>>>(seed, count, keys);
-}
 
 __device__ __forceinline__ bool row_alive(const float* mask, int p) {
   return mask == nullptr || mask[p] > 0.0f;
@@ -743,31 +727,135 @@ int launch_field_wsum_wide(const float* u, uint32_t* out, const float* mask,
                                     work, s);
 }
 
-// keys[0..P): stream A's row keys, keys[P..2P): stream B's.
+// ---------------------------------------------------------------------
+// The DP kernel past 16 rows.
+//
+// clip_noise_wide_kernel is clip_noise_kernel's arithmetic on a group of
+// kDpGroup rows: one launch, no workspace, a block for each 128 columns
+// and row group (blockIdx.y; groups past the grid's 65,535 loop).
+//   - A thread issues its column's loads of the group first, before the
+//     range guard (which only skips the stores).
+//   - The block stages the group's constants in shared memory: warp 0 the
+//     split keys of both streams, split_key(stream_key(seed ^ tag, p)),
+//     which are arithmetic alone, behind a first barrier; warp 1 the clip
+//     factors (one IEEE division a row) and alive bits, whose loads are
+//     issued at the start and whose barrier comes after the first two
+//     passes, so no thread waits on them.  Threads read a row's constants
+//     as shared broadcasts.
+//   - The passes are the P <= 16 kernel's three: the words, uniforms and
+//     -2 logf(u1); the cosf; the sqrtf, blend and stores.
+//   - A whole group (all but a ragged last one) runs a copy of the body
+//     with no per-row guard; in the ragged one, rows past P read the
+//     group's first row and store nothing.  Dead rows pass through bit for
+//     bit.
+//   Bound at (P, N) = (32, 109,634) with 2 rows dead: bytes, (P, N) f32
+//   read and written once, 8.4 us (33.5 us at P = 128); its operations
+//   take 2.4 us.  As at P <= 16 the nearer limit is issue: the body issues
+//   about 130 SASS instructions a row and column (2,085 a group outside
+//   cosf's large-argument path, counted as chip_smoke.py:print_sass_floor
+//   counts, before the whole-group copy), a floor of 13.7 us at P = 32
+//   and 54.7 us at P = 128.  What the design left behind: a
+//   thread that looped over the groups waited for each group's loads in
+//   turn (20.2 us at P = 32), and with the norm loads before the first
+//   barrier and a guard on every row the kernel took 18.7 us; capped at
+//   64 registers (8 blocks an SM, 80 without the cap) it spilled and took
+//   23.8 us (PERF.md).
+
+constexpr int kDpGroup = 16;          // rows a block takes
+constexpr int kDpMaxGroups = 65535;   // the grid's y extent
+
+// A row's blend constants: min(1, clip / max(norm, 1e-12)) and 1 iff the
+// row survives.
+struct alignas(8) DpBlend {
+  float factor;
+  uint32_t alive;
+};
+
+// One row group's noise for one column: the loads (rows past `count`
+// read the group's first row), warp 1's norm and participation loads,
+// the keys staged by warp 0 behind a first barrier, the words, uniforms
+// and logs, the cosines, warp 1's blend constants behind a second
+// barrier, then the square roots, blends and stores.  kFull: a whole
+// group (count == kDpGroup), with no per-row guard.
+template <bool kFull>
+__device__ __forceinline__ void noise_group(
+    const float* __restrict__ u, float* __restrict__ out,
+    const float* __restrict__ norms, const float* __restrict__ mask,
+    int64_t p0, int count, int64_t n, int64_t g, bool in, uint32_t c,
+    uint32_t seed, float clip, float noise_scale, uint2* keys,
+    DpBlend* blend) {
+  const float* src = u + p0 * n + g;
+  float x[kDpGroup], r[kDpGroup], a[kDpGroup];
+#pragma unroll
+  for (int k = 0; k < kDpGroup; ++k)
+    x[k] = in ? src[(int64_t)(kFull || k < count ? k : 0) * n] : 0.0f;
+  // warp 1 loads the rows' norms and participation now and stages the
+  // blend constants after the first two passes; warp 0 stages the keys
+  // (arithmetic only) behind the first barrier
+  const int stager = (int)threadIdx.x - 32;
+  float norm = 1.0f;
+  bool on = false;
+  if (stager >= 0 && stager < count) {
+    norm = norms[p0 + stager];
+    on = row_alive(mask, (int)(p0 + stager));
+  }
+  if (threadIdx.x < kDpGroup) {
+    const uint32_t stream = (uint32_t)(p0 + threadIdx.x) * kPairMul;
+    const uint32_t half_a = mix32(seed ^ kDpTagA ^ kGolden);
+    const uint32_t half_b = mix32(seed ^ kDpTagB ^ kGolden);
+    keys[threadIdx.x] = make_uint2(split_key(mix32(half_a ^ stream)),
+                                   split_key(mix32(half_b ^ stream)));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kDpGroup; ++k) {
+    const uint2 key = keys[k];
+    const uint32_t b1 = mix32_tail(key.x ^ c);
+    const uint32_t b2 = mix32_tail(key.y ^ c);
+    const float u1 = (float)((b1 >> 8) + 1u) * kU24;  // (0, 1]
+    const float u2 = (float)(b2 >> 8) * kU24;         // [0, 1)
+    r[k] = -2.0f * logf(u1);
+    a[k] = kTwoPi * u2;
+  }
+#pragma unroll
+  for (int k = 0; k < kDpGroup; ++k) a[k] = cosf(a[k]);
+  if (stager >= 0 && stager < kDpGroup)
+    blend[stager] = {fminf(1.0f, clip / fmaxf(norm, 1e-12f)), on ? 1u : 0u};
+  __syncthreads();
+  if (!in) return;
+  float* dst = out + p0 * n + g;
+#pragma unroll
+  for (int k = 0; k < kDpGroup; ++k) {
+    if (!kFull && k >= count) break;
+    const float z = sqrtf(r[k]) * a[k];
+    // a dropped row publishes nothing: it passes through bit for bit
+    const DpBlend row = blend[k];
+    dst[(int64_t)k * n] = row.alive ? row.factor * x[k] + noise_scale * z
+                                    : x[k];
+  }
+}
+
 __global__ void __launch_bounds__(kAggThreads)
 clip_noise_wide_kernel(const float* __restrict__ u, float* __restrict__ out,
                        const float* __restrict__ norms,
                        const float* __restrict__ mask, int P, int64_t n,
-                       const uint32_t* __restrict__ keys, float clip,
-                       float sigma) {
+                       uint32_t seed, float clip, float sigma) {
+  __shared__ uint2 keys[kDpGroup];       // a row's split keys, A and B
+  __shared__ DpBlend blend[kDpGroup];
   const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
-  if (g >= n) return;
+  const bool in = g < n;
   const uint32_t c = split_counter((uint32_t)g);
   const float noise_scale = sigma * clip;
-  for (int p = 0; p < P; ++p) {
-    const float x = u[p * n + g];
-    if (!row_alive(mask, p)) {   // a dropped row passes through
-      out[p * n + g] = x;
-      continue;
-    }
-    const float factor = fminf(1.0f, clip / fmaxf(norms[p], 1e-12f));
-    const uint32_t b1 = mix32_tail(keys[p] ^ c);
-    const uint32_t b2 = mix32_tail(keys[P + p] ^ c);
-    const float u1 = (float)((b1 >> 8) + 1u) * kU24;  // (0, 1]
-    const float u2 = (float)(b2 >> 8) * kU24;         // [0, 1)
-    const float r = -2.0f * logf(u1);
-    const float z = sqrtf(r) * cosf(kTwoPi * u2);
-    out[p * n + g] = factor * x + noise_scale * z;
+  for (int64_t p0 = (int64_t)blockIdx.y * kDpGroup; p0 < P;
+       p0 += (int64_t)gridDim.y * kDpGroup) {
+    if (p0 > (int64_t)blockIdx.y * kDpGroup)
+      __syncthreads();  // the last group's constants are read
+    if (P - p0 >= kDpGroup)
+      noise_group<true>(u, out, norms, mask, p0, kDpGroup, n, g, in, c,
+                        seed, clip, noise_scale, keys, blend);
+    else
+      noise_group<false>(u, out, norms, mask, p0, (int)(P - p0), n, g, in,
+                         c, seed, clip, noise_scale, keys, blend);
   }
 }
 
@@ -920,8 +1008,8 @@ int launch_rolling_update(const void* shares, const void* params, void* out,
 extern "C" {
 
 // `work`: at p > kMaxRows, the accumulator workspace of
-// masked_wide_workspace_bytes(p, n, domain) bytes, or null where that is 0
-// (clip_noise_f32: 2p uint32 words for its keys); unread otherwise.
+// masked_wide_workspace_bytes(p, n, domain) bytes, or null where that is
+// 0; unread otherwise.
 int masked_rolling_update_f32(const void* u, void* out, const void* mask,
                               int p, int64_t n, uint32_t seed, float alpha,
                               void* work, void* stream) {
@@ -974,17 +1062,16 @@ int64_t masked_wide_workspace_bytes(int p, int64_t n, int domain) {
 
 int clip_noise_f32(const void* u, void* out, const void* norms,
                    const void* mask, int p, int64_t n, uint32_t seed,
-                   float clip, float sigma, void* work, void* stream) {
+                   float clip, float sigma, void* stream) {
   if (n <= 0 || p < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (p > kMaxRows) {
-    if (work == nullptr) return (int)cudaErrorInvalidValue;
-    uint32_t* keys = (uint32_t*)work;
-    launch_wide_keys(seed ^ kDpTagA, p, keys, s);
-    launch_wide_keys(seed ^ kDpTagB, p, keys + p, s);
-    clip_noise_wide_kernel<<<agg_blocks(n), kAggThreads, 0, s>>>(
+    const dim3 grid(agg_blocks(n),
+                    (unsigned)std::min((p + kDpGroup - 1) / kDpGroup,
+                                       kDpMaxGroups));
+    clip_noise_wide_kernel<<<grid, kAggThreads, 0, s>>>(
         (const float*)u, (float*)out, (const float*)norms,
-        (const float*)mask, p, n, keys, clip, sigma);
+        (const float*)mask, p, n, seed, clip, sigma);
     return (int)cudaGetLastError();
   }
   const DpKeys keys = split_dp_keys(seed, p);

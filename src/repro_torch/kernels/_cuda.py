@@ -52,9 +52,9 @@ SOURCES = {
             # (u, out, mask, P, N, seed, scale, accumulator workspace)
             "masked_field_wsum_f32": (_P, _P, _P, _I, _L, ctypes.c_uint32,
                                       ctypes.c_float, _P),
-            # (u, out, norms, mask, P, N, seed, clip, sigma, key workspace)
+            # (u, out, norms, mask, P, N, seed, clip, sigma)
             "clip_noise_f32": (_P, _P, _P, _P, _I, _L, ctypes.c_uint32,
-                               ctypes.c_float, ctypes.c_float, _P),
+                               ctypes.c_float, ctypes.c_float),
             # (shares, params, out, P, N, alpha, params dtype code)
             "rolling_update_f32": (_P, _P, _P, _I, _L, ctypes.c_float, _I),
             # (shares, out, P, N)
@@ -215,7 +215,7 @@ def ptr(t) -> int | None:
 # it the same entry points launch their P > 16 kernels: the masked pair
 # walks the rows in tiles, its accumulators in shared memory or, where
 # they do not fit, in a workspace (`wide_accumulators`); the DP kernel
-# reads its keys from a workspace (`wide_keys`).
+# takes the rows in groups, their constants staged by each block.
 FUSED_MAX_ROWS = 16
 ANY_P = 2 ** 31 - 1
 
@@ -235,15 +235,6 @@ def check_rows(x: torch.Tensor, what: str = "updates",
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     return x.shape
-
-
-def wide_keys(P: int, n_keys: int, device) -> torch.Tensor | None:
-    """The key workspace of a DP kernel's launch: `n_keys` uint32 words
-    on `device` when P > FUSED_MAX_ROWS, else None (the P <= 16 kernels
-    take their keys by value)."""
-    if P <= FUSED_MAX_ROWS:
-        return None
-    return torch.empty((n_keys,), dtype=torch.int32, device=device)
 
 
 def wide_accumulators(P: int, N: int, domain: int,

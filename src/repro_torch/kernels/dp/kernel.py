@@ -30,11 +30,10 @@ def clip_noise_flat(updates: torch.Tensor, row_norms: torch.Tensor,
     if N == 0:
         return out
     m = _cuda.mask_arg(mask, P, updates.device)
-    keys = _cuda.wide_keys(P, 2 * P, updates.device)
     _cuda.launch("clip_noise_f32", updates.device, updates.data_ptr(),
                  out.data_ptr(), norms.data_ptr(), _cuda.ptr(m), P, N,
-                 int(seed), float(clip), float(sigma), _cuda.ptr(keys))
-    if keys is None:
+                 int(seed), float(clip), float(sigma))
+    if P <= _cuda.FUSED_MAX_ROWS:
         clip_noise_flat.launches += 1
     else:
         clip_noise_flat.launches_wide += 1

@@ -386,40 +386,30 @@ def wide_pair_tiles(P: int) -> list:
 def _wide_walk_sums(seed, P: int, offs: torch.Tensor, mask, shift: int,
                     bits: int) -> torch.Tensor:
     """(P, N) int64: each row's sum of its alive pairs' words >> `shift`
-    (+ as the pair's i, - as its j), accumulated as the walk does: tile
-    I's in its registers, a later row's in its accumulator, the two added
-    when tile I is done; every sum modulo 2^bits (bits = 64: int64's own
-    wrapping)."""
+    (+ as the pair's i, - as its j), modulo 2^bits (bits = 64: int64's own
+    wrapping).  The kernel adds the same words in the walk's order, tile
+    I's nets in its registers and a later row's in its accumulator; a sum
+    modulo 2^bits is the same in any order, so each tile row I of the walk
+    goes in one op (|a row's sum| < P 2^32 before the wrap)."""
     alive = torch.tensor(_alive_rows(mask, P), device=offs.device)
     keys = split_pair_keys(seed, P * (P - 1) // 2, offs.device)
     c = split_counter(offs)
     wrap = (1 << bits) - 1 if bits < 64 else -1
-    T = -(-P // WIDE_TILE)
-    acc = torch.zeros((T * WIDE_TILE, offs.shape[0]), dtype=torch.int64,
-                      device=offs.device)
     sums = torch.zeros((P, offs.shape[0]), dtype=torch.int64,
                        device=offs.device)
-    net = None
-    for I, J, pairs in wide_pair_tiles(P) + [(T, T, [])]:
-        if J == I:          # tile I - 1's nets are whole
-            if net is not None:
-                rows = slice(WIDE_TILE * (I - 1), min(WIDE_TILE * I, P))
-                sums[rows] = (net[:rows.stop - rows.start] + acc[rows]) & wrap
-            net = torch.zeros_like(acc[:WIDE_TILE])
+    rows = {}
+    for I, _, pairs in wide_pair_tiles(P):
+        rows.setdefault(I, []).extend(pairs)
+    for pairs in rows.values():
         if not pairs:
             continue
         i, j = (torch.tensor(v, device=offs.device) for v in zip(*pairs))
         k = i * (2 * P - i - 1) // 2 + (j - i - 1)
         w = (mix32_tail(keys[k][:, None] ^ c[None, :]) >> shift) * (
             alive[i] & alive[j])[:, None]
-        net.index_add_(0, i - WIDE_TILE * I, w)
-        if J == I:
-            net.index_add_(0, j - WIDE_TILE * I, -w)
-        else:
-            acc.index_add_(0, j, -w)
-        net &= wrap
-        acc &= wrap
-    return sums
+        sums.index_add_(0, i, w)
+        sums.index_add_(0, j, -w)
+    return sums & wrap
 
 
 def wide_int_net_pads(seed, P: int, offs: torch.Tensor, mask=None):

@@ -43,6 +43,7 @@ from repro_torch.core.overlay import DecentralizedOverlay, OverlayConfig
 from repro_torch.core.secure_agg import seed_from_key
 from repro_torch.data.pipeline import SyntheticGlendaDataset
 from repro_torch.pytree import tree_flatten
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P_FED, ROUNDS = 5, 6
 

@@ -18,6 +18,7 @@ from repro_torch.configs.stigma_cnn import STIGMA_CNN as T_STIGMA_CNN
 from repro_torch.convert import params_from_jax
 from repro_torch.pytree import tree_flatten
 from repro_torch.models import stigma_cnn as tcnn
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

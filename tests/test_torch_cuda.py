@@ -280,6 +280,57 @@ def test_fused_kernels_past_16_rows_match_plain(cuda, P, N, dead, offset):
         assert _same_bits(out[p], u[p]) and _same_bits(noised[p], u[p])
 
 
+# the DP kernel past 16 rows takes a column's rows 16 at a time and
+# stages the constants of 256 rows at once: P short of a whole group (40),
+# one row past a stage (257) and a ragged second stage (300), at N = 3 and
+# a ragged N, all alive, rows 0 and 4 dead, or rows 4 and P - 1 (the last
+# group's, the second stage's) dead
+_DP_WIDE_CASES = [(P, N, dead) for P in (40, 257, 300) for N in (3, 4097)
+                  for dead in ((), (0, 4), (4, P - 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,dead", _DP_WIDE_CASES)
+def test_dp_kernel_past_16_rows_groups_and_stages(cuda, P, N, dead):
+    """Equal bit for bit to `clip_noise_kernel_order` and within rtol
+    1e-5, atol 1e-6 of the plain version, dead rows bit-untouched."""
+    u, m = _wide_case(P, N, dead, 0, cuda)
+    norms = dp_ref._row_norms(u)
+    before = dp_kernel.clip_noise_flat.launches_wide
+    noised = dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
+    assert dp_kernel.clip_noise_flat.launches_wide == before + 1
+    torch.testing.assert_close(
+        noised, dp_ref.clip_noise_reference(u, 5, 0.5, 1.0, m, norms),
+        rtol=1e-5, atol=1e-6, equal_nan=True)
+    assert _same_bits(noised, dp_ref.clip_noise_kernel_order(
+        u, 5, 0.5, 1.0, m, norms))
+    for p in dead:
+        assert _same_bits(noised[p], u[p])
+
+
+@pytest.mark.cuda
+def test_dp_kernel_past_16_rows_is_one_launch(cuda):
+    """A call past 16 rows launches one kernel and nothing else: its
+    stream keys come from the kernel itself, not a key kernel and a
+    workspace."""
+    u, m = _wide_case(32, 4097, (0, 4), 0, cuda)
+    norms = dp_ref._row_norms(u)
+    dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
+    torch.cuda.synchronize()
+    calls = 20
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            dp_kernel.clip_noise_flat(u, norms, 5, 0.5, 1.0, m)
+        torch.cuda.synchronize()
+    # a trace may miss a few launches at the start of its window, never
+    # record one that did not happen
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    assert 0 < len(names) <= calls, names
+    assert all("clip_noise_wide_kernel" in n for n in names), set(names)
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_instead_of_falling_back(cuda):
     u = torch.zeros((3, 8), device=cuda)
@@ -481,6 +532,21 @@ FLASH_CASES = [
     (1, 200, 4, 2, 64, torch.bfloat16, False, 0, ""),
     (2, 190, 8, 2, 128, torch.bfloat16, True, 0, "qkv"),
     (2, 190, 8, 2, 64, torch.bfloat16, True, 0, "odd"),
+    # the fp32 kernel's tile edges (64 q rows a half-block, two q tiles a
+    # block, 64 kv rows a tile): S on each side of one and two tiles and
+    # of a pair, one q row, hd 80 and 32, non-causal, a window ending
+    # inside a kv tile, hymba's prefill (GQA group 5, window 1024), fused
+    # and unaligned layouts (the unaligned one takes 4-byte copies)
+    (1, 1, 4, 2, 64, torch.float32, True, 0, ""),
+    (1, 63, 4, 2, 128, torch.float32, True, 0, ""),
+    (1, 65, 4, 2, 128, torch.float32, True, 0, ""),
+    (1, 127, 4, 2, 32, torch.float32, True, 0, ""),
+    (1, 129, 4, 2, 80, torch.float32, True, 0, ""),
+    (1, 191, 4, 2, 80, torch.float32, False, 0, ""),
+    (2, 193, 6, 3, 128, torch.float32, True, 100, ""),
+    (1, 1152, 25, 5, 64, torch.float32, True, 1024, ""),
+    (2, 190, 8, 2, 128, torch.float32, True, 0, "qkv"),
+    (2, 190, 8, 2, 64, torch.float32, True, 0, "odd"),
 ]
 
 
@@ -533,6 +599,26 @@ def test_flash_kernel_layout_entry_and_empty_rows(cuda):
     want = fa_ref.attention_reference(q, k, v, causal=True, window=8)
     torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
     assert bool((out[:, :, 48:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,hd,causal,window",
+                         [(130, 70, 64, True, 8), (200, 65, 128, True, 16),
+                          (130, 40, 80, False, 8)])
+def test_flash_kernel_f32_rows_without_keys(cuda, Sq, Skv, hd, causal,
+                                            window):
+    """fp32, Sq > Skv under a window, across the kernel's tile edges: a q
+    row q >= Skv + window - 1 has no key to attend to and is 0; the rest
+    match the plain version."""
+    rng = np.random.default_rng([Sq, Skv, hd])
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, h, s, hd)).astype(np.float32)).to(cuda)
+        for h, s in ((4, Sq), (2, Skv), (2, Skv)))
+    out = fa_kernel.flash_attention_bhsd(q, k, v, causal=causal,
+                                         window=window)
+    want = fa_ref.attention_reference(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    assert bool((out[:, :, Skv + window - 1:] == 0).all())
 
 
 @pytest.mark.cuda

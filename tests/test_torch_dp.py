@@ -19,6 +19,7 @@ from repro.kernels.secure_agg import masking as jmasking
 from repro_torch.kernels.dp import kernel as tkernel
 from repro_torch.kernels.dp import ops, ref
 from repro_torch.kernels.secure_agg import masking
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MASKS = ["all", "one_dead", "two_dead"]
 

@@ -39,6 +39,7 @@ from repro_torch.core.secure_agg import seed_from_key
 from repro_torch.pytree import tree_flatten
 from repro_torch.data.pipeline import DirichletPartitioner, SyntheticGlendaDataset
 from repro_torch.privacy.accountant import DPConfig
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 MODES = ["float", "int", "dp"]

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import (
     attention_reference, flash_attention,
 )
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (B, S, Hq, Hkv, hd, dtype, causal, window)
 CASES = [

@@ -35,6 +35,7 @@ from repro_torch.core import secure_agg as tsa
 from repro_torch.kernels.secure_agg import kernel as tkernel
 from repro_torch.kernels.secure_agg import ops, ref
 from repro_torch.pytree import tree_flatten, treedef_str
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 7, 2 ** 31 + 3, 2 ** 32 - 1]
 ULP_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,

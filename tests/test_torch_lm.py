@@ -35,6 +35,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.registry import fingerprint_pytree
 from repro_torch.models import layers as L
 from repro_torch.pytree import tree_flatten, treedef_str
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LM_ARCHS = ["qwen3-0.6b", "smollm-360m"]
 QWEN3_TREEDEF = (

@@ -58,6 +58,7 @@ from repro_torch.core.merges.strategies import quantize_leaf
 from repro_torch.core.overlay import DecentralizedOverlay, OverlayConfig
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.pytree import tree_flatten
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FLOAT_MERGES = ["ring", "hierarchical", "quantized", "trimmed_mean",
                 "coordinate_median", "norm_gated_mean"]

@@ -63,6 +63,7 @@ from repro_torch.serving import (
     pull_latest_model,
 )
 from repro_torch.serving.harness import LMFederation, TINY_SERVE_SSM
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH_IDS = ["rwkv6-3b", "hymba-1.5b"]
 ULPS = 8

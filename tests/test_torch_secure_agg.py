@@ -23,6 +23,7 @@ from repro_torch.core.secure_agg import ravel_stacked
 from repro_torch.pytree import tree_flatten, treedef_str
 from repro_torch.kernels.secure_agg import field, masking, ops, ref
 from repro_torch.kernels.secure_agg import kernel as tkernel
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PS = [2, 5, 10]
 NS = [1, 777, 4096]

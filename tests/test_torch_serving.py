@@ -45,6 +45,7 @@ from repro_torch.serving import (
 )
 from repro_torch.serving import federated
 from repro_torch.serving.harness import LMFederation, TINY_SERVE
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCFG = ServeConfig(max_seq_len=48, batch_size=2)
 JAX_SCFG = JaxServeConfig(max_seq_len=48, batch_size=2)

@@ -27,6 +27,7 @@ from repro_torch.kernels.ssm_scan import (
 )
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_lookback
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 

@@ -19,6 +19,7 @@ from repro.kernels.rwkv6_scan import wkv6_reference as jax_wkv6_reference
 from repro.kernels.rwkv6_scan.kernel import wkv6_bthd as jax_wkv6_bthd
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_reference
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
