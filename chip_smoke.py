@@ -30,6 +30,17 @@ after:
 * a fleet of P = 32 hospitals at full width with the fleet consensus
   parameters, 6 rounds in each secure_mean mode, through the fused
   kernels' P > 16 versions;
+* crash recovery (``chaos.recovery``): two same-seed P = 10 federations
+  in each mode must end bit-equal (and do so only with the local step's
+  cuDNN held deterministic, whose cost in ms/round is timed in turns);
+  then, under the reference's recovery schedule (30% dropout, a fatal
+  coordinator crash at round 3), 6 rounds with a verified snapshot every
+  2 into a temporary directory: the run killed at its crash round, a
+  fresh federation failed over from the newest verified snapshot must
+  end bit-equal to an uninterrupted run, also when the newest snapshot
+  is corrupted in each of four ways and the failover falls back to the
+  one before; the same for the P = 32 fleet, whose round 4 (half the
+  fleet stranded, and the fatal crash) aborts with every row untouched;
 * the legacy two-stage MPC round (``core.secure_agg
   .secure_rolling_update``: masks drawn on the card, shares materialized,
   one aggregate kernel) in both domains, at P = 10 on the CNN's N and at
@@ -50,6 +61,10 @@ after:
   The recurrent families' depth is the largest whose training round
   peaks below 70 GiB on the 80 GB card; ``--depth-probe`` measures the
   round's peak depth by depth up to the first that reaches it;
+* a rebooted serving tier: qwen3-0.6b cut to 2 layers, one round with a
+  snapshot of its 2.2 GB carry; ``pull_from_snapshot`` feeds a
+  ``FederatedServer`` whose greedy tokens must equal a server's on the
+  live federation's pull, and each corruption of a copy is refused;
 * the models' prefill in fp32 compute (the reference's
   ``models/layers.py:COMPUTE_DTYPE = float32``, set for this phase only):
   one 1,024-token prompt of qwen3-0.6b and of hymba-1.5b, each cut to 2
@@ -66,10 +81,12 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without a CUDA device or outside the
 repository.
 
-The script leaves PyTorch's TF32 settings at their defaults, as a user
-has them: the CNN's local step computes in IEEE float32 by itself, and the
-LMs compute in bf16 (hymba's scan inputs in fp32).
+The script leaves PyTorch's TF32 and cuDNN settings at their defaults, as
+a user has them: the CNN's local step computes in IEEE float32 with
+cuDNN's deterministic algorithms by itself, and the LMs compute in bf16
+(hymba's scan inputs in fp32).
 """
+import contextlib
 import gc
 import json
 import math
@@ -78,6 +95,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2352,6 +2370,436 @@ def fleet_main_path(dev, kernels, fed_kwargs, totals_wide):
 
 
 # ----------------------------------------------------------------------
+# crash recovery (slice 12)
+
+RECOVERY_ROUNDS = 6        # the reference's recovery runs (fig_recovery.py)
+RECOVERY_EVERY = 2
+# the fleet's crash at round 4 after a snapshot at round 3: round 3's
+# work is lost and replayed, and the aborted round 4 runs after failover
+FLEET_RECOVERY_EVERY = 3
+# the serving tier's reboot: the fp32 phase's cut of qwen3-0.6b
+REBOOT_ARCH, REBOOT_DEPTH, REBOOT_REQUESTS = "qwen3-0.6b", 2, 4
+MODE_KERNELS = {"float": ("masked_rolling_update",),
+                "int": ("masked_field_wsum",),
+                "dp": ("masked_rolling_update", "clip_noise")}
+
+
+def recovery_schedule():
+    """The reference's own recovery schedule (its
+    benchmarks/fig_recovery.py): 30% dropout and a coordinator crash at
+    round 3 that kills the coordinating process."""
+    from repro_torch.chaos import CoordinatorCrash, Dropout, compose
+    return compose(Dropout(rate=0.3, seed=5),
+                   CoordinatorCrash(rounds=(3,), fatal=True))
+
+
+def fleet_recovery_schedule():
+    """Half the fleet stranded in round 4, the round a fatal coordinator
+    crash kills the coordinating process: the survivors lack a quorum, so
+    round 4 and no other aborts (under the fleet parameters the crash
+    round's re-election among 31 fails by itself as well)."""
+    from repro_torch.chaos import CoordinatorCrash, Partition, compose
+    return compose(Partition(start=4, stop=5,
+                             minority=tuple(range(FLEET_P // 2))),
+                   CoordinatorCrash(rounds=(4,), fatal=True))
+
+
+def full_width_federation(dev, schedule, mode_kwargs, P=P_FULL, **kw):
+    """The paper's federation at full width (width 1.0, 64x64, batch 8, 2
+    local steps) of P hospitals under `schedule`."""
+    from repro_torch.chaos.harness import CNNFederation
+    return CNNFederation(schedule, 0, n_institutions=P, local_steps=2,
+                         batch=8, image_size=64, width_scale=1.0,
+                         device=dev, **mode_kwargs, **kw)
+
+
+@contextlib.contextmanager
+def cudnn_free_to_choose():
+    """The local step as it was before its convolutions were held to
+    cuDNN's deterministic algorithms: `cnn.full_fp32` with the flag
+    cleared inside it (the caller's setting is restored on exit)."""
+    from repro_torch.models import stigma_cnn as cnn
+    held = cnn.full_fp32
+
+    @contextlib.contextmanager
+    def tf32_off_only():
+        with held():
+            torch.backends.cudnn.deterministic = False
+            yield
+    cnn.full_fp32 = tf32_off_only
+    try:
+        yield
+    finally:
+        cnn.full_fp32 = held
+
+
+def determinism_path(dev, fed_kwargs):
+    """Two same-seed full-width federations (P = 10, RECOVERY_ROUNDS
+    rounds) in each mode end bit-equal: params fingerprint and chain
+    digest (asserted; crash recovery is a replay only if they do).  The
+    same pair with the local step's cuDNN free to choose its algorithms,
+    for the record, and the main path's ms/round both ways, in turns
+    (held, free, free, held; a warm-up round, then RECOVERY_ROUNDS timed
+    rounds each)."""
+    from repro_torch.pytree import tree_flatten
+
+    def run(mode, free, timed=False):
+        with cudnn_free_to_choose() if free else contextlib.nullcontext():
+            fed = full_width_federation(dev, None, fed_kwargs(mode))
+            if timed:
+                fed.run_rounds(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fed.run_rounds(RECOVERY_ROUNDS)
+            torch.cuda.synchronize()
+        return fed, (time.perf_counter() - t0) * 1e3 / RECOVERY_ROUNDS
+
+    for mode in MODES:
+        (a, _), (b, _) = run(mode, False), run(mode, False)
+        assert a.params_fingerprint() == b.params_fingerprint(), mode
+        assert a.chain_digest() == b.chain_digest(), mode
+        (c, _), (d, _) = run(mode, True), run(mode, True)
+        differ = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                     for x, y in zip(tree_flatten(c.stacked)[0],
+                                     tree_flatten(d.stacked)[0]))
+        del a, b, c, d
+        ms = {False: [], True: []}
+        for free in (False, True, True, False):
+            ms[free].append(run(mode, free, timed=True)[1])
+        print(f"determinism {mode}: two same-seed runs of {RECOVERY_ROUNDS} "
+              f"rounds bit-equal (fingerprint and chain digest) | with "
+              f"cuDNN free to choose: {differ} of {P_FULL * N_FULL} params "
+              f"differ between two runs | ms/round held "
+              f"{ms[False][0]:.2f} {ms[False][1]:.2f}, free "
+              f"{ms[True][0]:.2f} {ms[True][1]:.2f} (turns held, free, "
+              f"free, held)")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+class RecoveryProbe:
+    """The federation factory `simulate_crash_run` calls, timing what
+    recovery does: every snapshot's save (`saves`, on every federation
+    built), and on the failover federation (the second built) its
+    construction, its restore and verification (`resume_from`) and the
+    run after it, whose launches of each kernel (`attr`: "launches" or
+    "launches_wide") it counts (`run_launches`).  `on_make(fed)` sees
+    every federation built."""
+
+    def __init__(self, make, kernels, attr="launches", on_make=None):
+        self.make, self.kernels, self.attr = make, kernels, attr
+        self.on_make, self.built, self.saves = on_make, 0, []
+        self.times = {}
+        self.run_launches = None
+
+    def counts(self):
+        return {n: getattr(k["wrapper"], self.attr)
+                for n, k in self.kernels.items()}
+
+    def __call__(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed = self.make()
+        torch.cuda.synchronize()
+        if self.on_make is not None:
+            self.on_make(fed)
+        save = Stopwatch(fed.overlay.snapshot)
+        fed.overlay.snapshot = save
+        self.saves.append(save)
+        self.built += 1
+        if self.built == 2:
+            self.times["build"] = time.perf_counter() - t0
+            resume, run = Stopwatch(fed.resume_from), fed.run_rounds
+
+            def counted_run(*args, **kwargs):
+                before = self.counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = run(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.times["run"] = time.perf_counter() - t1
+                self.run_launches = {n: v - before[n]
+                                     for n, v in self.counts().items()}
+                return out
+            fed.resume_from, fed.run_rounds = resume, counted_run
+            self.resume = resume
+        return fed
+
+    @property
+    def save_ms(self):
+        calls = [c for s in self.saves for c in s.calls]
+        return 1e3 * sum(calls) / len(calls)
+
+    @property
+    def restore_ms(self):
+        return self.resume.seconds * 1e3
+
+
+def recovery_main_path(dev, kernels, fed_kwargs, totals):
+    """The paper's federation at full width (P = 10) under the reference's
+    recovery schedule, in each mode, RECOVERY_ROUNDS rounds with a
+    snapshot every RECOVERY_EVERY into a temporary directory: the crash
+    round comes from `fatal_crash_rounds`; `simulate_crash_run` (launch
+    counts 0 just before, read just after) must give `golden_run`'s chain
+    digest and params fingerprint bit for bit, with the mode's kernels
+    launched once a round after the failover; then one run per corruption
+    mode, a snapshot every round and the newest corrupted, which must
+    refuse it, fall back to the one before, and end bit-equal too.
+    Prints the snapshot's bytes, the save, restore-and-verify, replay and
+    whole-recovery times."""
+    from repro_torch.chaos import (
+        CORRUPTION_MODES, corrupt_snapshot, fatal_crash_rounds, golden_run,
+        simulate_crash_run,
+    )
+    from repro_torch.checkpoint import list_snapshots
+    sched = recovery_schedule()
+    crash, = fatal_crash_rounds(sched, RECOVERY_ROUNDS)
+    for mode in MODES:
+        def make():
+            return full_width_federation(dev, sched, fed_kwargs(mode))
+        golden = golden_run(make, RECOVERY_ROUNDS)
+        probe = RecoveryProbe(make, kernels)
+        snap_dir = tempfile.mkdtemp(prefix="recovery-")
+        try:
+            for k in kernels.values():
+                k["wrapper"].launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = simulate_crash_run(probe, RECOVERY_ROUNDS, crash,
+                                     snap_dir, snapshot_every=RECOVERY_EVERY)
+            torch.cuda.synchronize()
+            whole_ms = (time.perf_counter() - t0) * 1e3
+            counts = {n: k["wrapper"].launches for n, k in kernels.items()}
+            snap_bytes = dir_bytes(list_snapshots(snap_dir)[-1][1])
+        finally:
+            shutil.rmtree(snap_dir, ignore_errors=True)
+        for n in counts:
+            totals[n] += counts[n]
+        assert (rep.chain_digest, rep.params_fingerprint) == golden, mode
+        assert rep.restored_round == (crash // RECOVERY_EVERY) * \
+            RECOVERY_EVERY and not rep.snapshots_skipped, rep
+        after = RECOVERY_ROUNDS - rep.restored_round
+        for n in kernels:
+            want = after if n in MODE_KERNELS[mode] else 0
+            assert probe.run_launches[n] == want, (mode, probe.run_launches)
+        failover_ms = 1e3 * (probe.times["build"] + probe.times["run"]) + \
+            probe.restore_ms
+        run_ms = probe.times["run"] * 1e3
+        print(f"recovery path {mode}: crash at round {crash} of "
+              f"{RECOVERY_ROUNDS}, snapshot every {RECOVERY_EVERY} | "
+              f"restored round {rep.restored_round}, {rep.rounds_replayed} "
+              f"lost round replayed, final state bit-equal to the golden "
+              f"run | snapshot {snap_bytes:,} bytes, save "
+              f"{probe.save_ms:.2f} ms | failover: build "
+              f"{probe.times['build'] * 1e3:.2f} ms, restore and verify "
+              f"{probe.restore_ms:.2f} ms, replay and finish {after} rounds "
+              f"{run_ms:.2f} ms ({run_ms / after:.2f} ms/round) | RTO "
+              f"(build + restore + {rep.rounds_replayed} lost round) "
+              f"{probe.times['build'] * 1e3 + probe.restore_ms + rep.rounds_replayed * run_ms / after:.2f} ms"
+              f" | whole failover {failover_ms:.2f} ms, whole doomed + "
+              f"failover run {whole_ms:.2f} ms | launches {counts}, after "
+              f"the failover {probe.run_launches}")
+        for cmode in CORRUPTION_MODES:
+            snap_dir = tempfile.mkdtemp(prefix="recovery-")
+            try:
+                rep = simulate_crash_run(
+                    make, RECOVERY_ROUNDS, crash, snap_dir, snapshot_every=1,
+                    corrupt=lambda sd, c=cmode: corrupt_snapshot(
+                        list_snapshots(sd)[-1][1], c))
+            finally:
+                shutil.rmtree(snap_dir, ignore_errors=True)
+            assert (rep.chain_digest, rep.params_fingerprint) == golden, \
+                (mode, cmode)
+            assert rep.restored_round == crash - 1, (cmode, rep)
+            assert [os.path.basename(p) for p in rep.snapshots_skipped] == \
+                [f"round_{crash:06d}"], (cmode, rep)
+        print(f"  each corruption of the newest snapshot "
+              f"({', '.join(CORRUPTION_MODES)}) refused; fell back to round "
+              f"{crash - 1}, final state bit-equal to the golden run")
+        del probe
+
+
+def fleet_recovery_path(dev, kernels, fed_kwargs, totals_wide):
+    """A fleet at full width: FLEET_P = 32 hospitals,
+    `ProtocolParams.for_fleet(32)`, under `fleet_recovery_schedule`, in
+    each mode, RECOVERY_ROUNDS rounds with a snapshot every
+    FLEET_RECOVERY_EVERY.  Exactly one round (4) aborts, in the golden run
+    and in the failover run, and `MergeRecorder` sees its rows handed back
+    bit-untouched; the recovered run equals the golden run bit for bit;
+    the mode's P > 16 kernels launch (counts 0 just before, read just
+    after) and the narrow ones do not."""
+    from repro_torch.chaos import (
+        fatal_crash_rounds, golden_run, simulate_crash_run,
+    )
+    from repro_torch.checkpoint import list_snapshots
+    from repro_torch.core import ProtocolParams
+    sched = fleet_recovery_schedule()
+    crash, = fatal_crash_rounds(sched, RECOVERY_ROUNDS)
+    for mode in MODES:
+        recorders = []
+
+        def make():
+            fed = full_width_federation(
+                dev, sched, fed_kwargs(mode), P=FLEET_P,
+                consensus_params=ProtocolParams.for_fleet(FLEET_P))
+            recorders.append(MergeRecorder(fed.overlay))
+            return fed
+        for k in kernels.values():
+            k["wrapper"].launches = k["wrapper"].launches_wide = 0
+        golden = golden_run(make, RECOVERY_ROUNDS)
+        probe = RecoveryProbe(make, kernels, attr="launches_wide")
+        snap_dir = tempfile.mkdtemp(prefix="fleet-recovery-")
+        try:
+            rep = simulate_crash_run(probe, RECOVERY_ROUNDS, crash, snap_dir,
+                                     snapshot_every=FLEET_RECOVERY_EVERY)
+            snap_bytes = dir_bytes(list_snapshots(snap_dir)[-1][1])
+        finally:
+            shutil.rmtree(snap_dir, ignore_errors=True)
+        wide = {n: k["wrapper"].launches_wide for n, k in kernels.items()}
+        narrow = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n in wide:
+            totals_wide[n] += wide[n]
+        assert (rep.chain_digest, rep.params_fingerprint) == golden, mode
+        assert rep.restored_round == FLEET_RECOVERY_EVERY, rep
+        gold_rec, doomed_rec, failover_rec = recorders
+        aborted = [[rnd for rnd, committed, _, _ in r.calls if not committed]
+                   for r in recorders]
+        assert aborted == [[crash], [], [crash]], aborted
+        assert gold_rec.aborted == failover_rec.aborted == 1
+        after = RECOVERY_ROUNDS - rep.restored_round
+        for n in kernels:
+            want = after if n in MODE_KERNELS[mode] else 0
+            assert probe.run_launches[n] == want, (mode, probe.run_launches)
+            assert (wide[n] > 0) == (n in MODE_KERNELS[mode]), (mode, wide)
+        assert sum(narrow.values()) == 0, narrow
+        print(f"fleet recovery P={FLEET_P} {mode}: round {crash} aborted "
+              f"(survivors lost quorum) and its rows came back "
+              f"bit-untouched, in the golden run and after failover; crash "
+              f"at round {crash}, restored round {rep.restored_round}, "
+              f"{rep.rounds_replayed} lost round replayed, final state "
+              f"bit-equal to the golden run | snapshot {snap_bytes:,} bytes,"
+              f" save {probe.save_ms:.2f} ms, restore and verify "
+              f"{probe.restore_ms:.2f} ms | P > 16 launches {wide}")
+        del recorders, probe, gold_rec, doomed_rec, failover_rec
+
+
+def copy_snapshot(src, dst, mode):
+    """A copy of the snapshot `src` at `dst` for `corrupt_snapshot(dst,
+    mode)`: the file the mode rewrites is copied, the payload is
+    hard-linked where the mode leaves it as it is."""
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        a, b = os.path.join(src, name), os.path.join(dst, name)
+        if name == "arrays.npz" and mode not in ("flip_arrays",
+                                                 "torn_arrays"):
+            os.link(a, b)
+        else:
+            shutil.copyfile(a, b)
+
+
+def serving_reboot_path(dev, all_wrappers):
+    """A rebooted serving tier: qwen3-0.6b at its published width cut to
+    REBOOT_DEPTH layers; one `LMFederation` round (P = 3) with
+    snapshot_every=1 into a temporary directory (removed after);
+    `pull_from_snapshot` (timed) feeds a `FederatedServer` on the card
+    whose greedy tokens for REBOOT_REQUESTS requests must equal those of
+    a server on the live federation's `pull_latest_model`; each
+    corruption mode, applied to a copy of the snapshot, must raise
+    `SnapshotError`.  Every launch count 0 at the start; returns {LM
+    kernel: its launches}."""
+    import dataclasses
+    from repro_torch.chaos import CORRUPTION_MODES, corrupt_snapshot
+    from repro_torch.checkpoint import SnapshotError, list_snapshots
+    from repro_torch.configs import get_config
+    from repro_torch.pytree import tree_flatten
+    from repro_torch.serving import (
+        FederatedServer, ModelStore, ServeConfig, pull_from_snapshot,
+        pull_latest_model,
+    )
+    from repro_torch.serving.harness import LMFederation
+
+    full = get_config(REBOOT_ARCH)
+    cfg = dataclasses.replace(full, n_layers=REBOOT_DEPTH)
+    scfg = ServeConfig(max_seq_len=2048, batch_size=REBOOT_REQUESTS)
+    wrappers = kernel_wrappers()
+    for w in all_wrappers:
+        w.launches = 0
+    snap_dir = tempfile.mkdtemp(prefix="reboot-")
+    try:
+        fed = LMFederation(cfg, 0, device=dev)
+        n_params = sum(x[0].numel() for x in tree_flatten(fed.stacked)[0])
+        save = Stopwatch(fed.overlay.snapshot)
+        fed.overlay.snapshot = save
+        _, trs = fed.run_rounds(1, snapshot_every=1, snapshot_dir=snap_dir)
+        assert trs[0].committed
+        (_, path), = list_snapshots(snap_dir)
+        nbytes = dir_bytes(path)
+        live_store = ModelStore()
+        fed.publish(live_store)
+        t0 = time.perf_counter()
+        model = pull_from_snapshot(snap_dir, fed.stacked,
+                                   cfg=fed.overlay.cfg, arch_family=cfg.name)
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        live = pull_latest_model(fed.overlay.registry, live_store,
+                                 arch_family=cfg.name)
+        assert (model.fingerprint, model.version, model.ledger_root) == \
+            (live.fingerprint, live.version, live.ledger_root)
+        rebooted_store = ModelStore()
+        rebooted_store.put(model.params)
+        tokens = {}
+        for label, store in (("rebooted", rebooted_store),
+                             ("live", live_store)):
+            srv = FederatedServer(cfg, fed.overlay.registry, store, scfg,
+                                  trusted_root=model.ledger_root,
+                                  arch_family=cfg.name, device=dev)
+            for r in lm_requests(cfg.vocab_size)[:REBOOT_REQUESTS]:
+                srv.engine.submit(r)
+            tokens[label] = {r.uid: r.generated for r in srv.engine.run()}
+            del srv
+            gc.collect()
+            torch.cuda.empty_cache()
+        assert len(tokens["live"]) == REBOOT_REQUESTS
+        assert tokens["rebooted"] == tokens["live"]
+        launches = {k: w.launches for k, w in wrappers.items()}
+        want = expected_launches(cfg, 2 * REBOOT_REQUESTS, 0)
+        assert launches == want, (launches, want)
+        refuse_ms = {}
+        for cmode in CORRUPTION_MODES:
+            parent = os.path.join(snap_dir, f"copy-{cmode}")
+            copy_snapshot(path, os.path.join(parent,
+                                             os.path.basename(path)), cmode)
+            corrupt_snapshot(os.path.join(parent, os.path.basename(path)),
+                             cmode)
+            t0 = time.perf_counter()
+            try:
+                pull_from_snapshot(parent, fed.stacked, cfg=fed.overlay.cfg)
+            except SnapshotError:
+                refuse_ms[cmode] = (time.perf_counter() - t0) * 1e3
+            finally:
+                shutil.rmtree(parent)
+            assert cmode in refuse_ms, f"{cmode}: snapshot not refused"
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    print(f"serving reboot {REBOOT_ARCH}: {REBOOT_DEPTH} layers, cut from "
+          f"{full.n_layers} (published widths), {n_params:,} parameters | "
+          f"1 round, snapshot of the P = 3 carry {nbytes:,} bytes saved in "
+          f"{save.seconds * 1e3:.1f} ms | pull from snapshot (restore, "
+          f"verify, provenance gate) {pull_ms:.1f} ms | the rebooted "
+          f"server's greedy tokens for {REBOOT_REQUESTS} requests equal the "
+          f"live server's | each corruption refused: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in refuse_ms.items())
+          + " | launches " + ", ".join(f"{k} {v}" for k, v in
+                                       launches.items() if v))
+    del fed, model, live, rebooted_store, live_store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
 # a redesigned kernel against its parent's, in turns
 
 def call_ms(fn, iters):
@@ -2442,8 +2890,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {smi}")
     print(f"tf32 as the process has it: cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32} (left as they are; "
-          f"the federation's local step turns both off inside itself)")
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn.deterministic="
+          f"{torch.backends.cudnn.deterministic} (left as they are; the "
+          f"federation's local step turns TF32 off and cuDNN's "
+          f"deterministic algorithms on inside itself)")
     t_start = time.perf_counter()
     if "--depth-probe" in args:
         depth_probe(dev)
@@ -2509,6 +2959,9 @@ def main() -> int:
     fault_main_path(dev, kernels, fed_kwargs, totals)
     merges_main_path(dev, kernels, totals)
     fleet_main_path(dev, kernels, fed_kwargs, totals_wide)
+    determinism_path(dev, fed_kwargs)
+    recovery_main_path(dev, kernels, fed_kwargs, totals)
+    fleet_recovery_path(dev, kernels, fed_kwargs, totals_wide)
     for name, n in list(totals.items()) + [
             (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"
@@ -2533,6 +2986,8 @@ def main() -> int:
     for arch, depth, lr in LM_PATHS:
         for name, n in lm_main_path(dev, arch, depth, lr, wrappers).items():
             lm_launches[name] += n
+    for name, n in serving_reboot_path(dev, wrappers).items():
+        lm_launches[name] += n
     fp32_launches = fp32_prefill_path(dev, wrappers)
     assert fp32_launches > 0, "the fp32 flash kernel never launched"
     errs = {"flash_attention_bhsd": flash_err, "wkv6_bthd": wkv6_err,

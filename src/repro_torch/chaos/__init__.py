@@ -10,6 +10,8 @@ federation harness.
   attacks.py    Byzantine attack models: ByzantineSchedule, apply_attack
                 and the named attack matrix
   harness.py    CNNFederation, which runs the paper's federation
+  recovery.py   kill/recover: fatal crash rounds, snapshot corruption,
+                simulate_crash_run against golden_run
 """
 from repro_torch.chaos.attacks import (
     ATTACK_KINDS, ByzantineSchedule, apply_attack, attack_scenarios,
@@ -19,11 +21,17 @@ from repro_torch.chaos.schedule import (
     ComposedSchedule, CoordinatorCrash, Dropout, FaultSchedule, Flapping,
     Partition, RoundFaults, Straggler, compose,
 )
+from repro_torch.chaos.recovery import (
+    CORRUPTION_MODES, RecoveryReport, corrupt_snapshot, fatal_crash_rounds,
+    golden_run, simulate_crash_run,
+)
 from repro_torch.chaos.scenarios import standard_scenarios
 
 __all__ = [
-    "ATTACK_KINDS", "ByzantineSchedule", "ComposedSchedule",
-    "CoordinatorCrash", "Dropout", "FaultSchedule", "Flapping", "Partition",
-    "RoundFaults", "Straggler", "apply_attack", "attack_scenarios",
-    "compose", "draw_attackers", "standard_scenarios",
+    "ATTACK_KINDS", "CORRUPTION_MODES", "ByzantineSchedule",
+    "ComposedSchedule", "CoordinatorCrash", "Dropout", "FaultSchedule",
+    "Flapping", "Partition", "RecoveryReport", "RoundFaults", "Straggler",
+    "apply_attack", "attack_scenarios", "compose", "corrupt_snapshot",
+    "draw_attackers", "fatal_crash_rounds", "golden_run",
+    "simulate_crash_run", "standard_scenarios",
 ]

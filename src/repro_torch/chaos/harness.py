@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch import resolve_device
+from repro_torch.checkpoint.snapshot import latest_verified_snapshot
 from repro_torch.configs.stigma_cnn import STIGMA_CNN
 from repro_torch.core.overlay import (
     DecentralizedOverlay, OverlayConfig, replicate_params,
@@ -28,7 +29,8 @@ class CNNFederation:
     institution-private synthetic GLENDA frames, then the consensus-gated,
     survivor-masked secure merge) and returns (metrics, transcript);
     `run_rounds(n)` executes n rounds through the batched engine,
-    bit-identical to n `run_round` calls.
+    bit-identical to n `run_round` calls.  `snapshot` and `resume_from`
+    are its crash recovery (`chaos.recovery` drives them).
 
     The local SGD step is vmapped over the institution axis
     (`torch.func.vmap` of `torch.func.grad_and_value`), in IEEE float32
@@ -121,7 +123,7 @@ class CNNFederation:
             norm_gate_factor=norm_gate_factor, secure_domain=secure_domain,
             block_spec=block_spec, merge_blocks=merge_blocks,
             block_schedule=block_schedule, inner_merge=inner_merge,
-            arch_family="cnn"),
+            merge_subtree=None, arch_family="cnn"),
             registry=ModelRegistry(logical_clock=True))
 
     def _round_batches(self, rnd: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,19 +145,48 @@ class CNNFederation:
             self.round_key(rnd))
         return metrics, tr
 
-    def run_rounds(self, n_rounds: int) -> Tuple[Dict, list]:
+    def run_rounds(self, n_rounds: int, *,
+                   snapshot_every: Optional[int] = None,
+                   snapshot_dir: Optional[str] = None) -> Tuple[Dict, list]:
         """The next n rounds through the batched engine, starting at the
         overlay's current round index (the data and key schedules follow
         the consensus schedule), so repeated calls chunk training exactly
-        like repeated `run_round` calls."""
+        like repeated `run_round` calls.  `snapshot_every` /
+        `snapshot_dir`: a verified snapshot every K rounds (see
+        `DecentralizedOverlay.run_rounds`), which changes no bit."""
         start = self.overlay.round_index
         per_round = [self._round_batches(start + r) for r in range(n_rounds)]
         imgs = torch.stack([b[0] for b in per_round])
         labels = torch.stack([b[1] for b in per_round])
         keys = np.stack([self.round_key(start + r) for r in range(n_rounds)])
         self.stacked, metrics, trs = self.overlay.run_rounds(
-            self.stacked, (imgs, labels), self.local_step, keys, n_rounds)
+            self.stacked, (imgs, labels), self.local_step, keys, n_rounds,
+            snapshot_every=snapshot_every, snapshot_dir=snapshot_dir)
         return metrics, trs
+
+    # -- crash recovery -------------------------------------------------
+    def snapshot(self, snapshot_dir: str) -> str:
+        """Persist a verified snapshot at the current round (what the
+        eager `run_round` loop calls between rounds); returns its path."""
+        return self.overlay.snapshot(snapshot_dir, self.stacked)
+
+    def resume_from(self, snapshot_dir: str, on_skip=None
+                    ) -> Tuple[int, list]:
+        """Fail over from the newest verified snapshot under
+        `snapshot_dir`: corrupt or torn snapshots are skipped (each
+        reported through `on_skip(path, reason)`), the overlay adopts the
+        ledger, stats and accountant and fast-forwards its consensus gate,
+        and `self.stacked` becomes the verified carry, on `self.device`.
+        Call it on a fresh federation built with the crashed run's seed
+        and config: the data and key schedules are pure functions of the
+        round index, so the resumed run is bit-identical to an
+        uninterrupted one.  Returns ``(restored_round, skipped)``."""
+        stacked, state, _, skipped = latest_verified_snapshot(
+            snapshot_dir, self.stacked, cfg=self.overlay.cfg,
+            on_skip=on_skip)
+        self.overlay.restore(state)
+        self.stacked = stacked
+        return state.round_index, skipped
 
     def per_institution_eval(self, batch: int = 64, seed: int = 0) -> Dict:
         """Each institution's own replica on its own held-aside batch: row

@@ -184,9 +184,9 @@ class CoordinatorCrash(FaultSchedule):
 
     ``fatal=True`` marks the crash as killing the whole coordinating
     process, not just the in-flight Paxos instance.  Its consensus effect
-    is identical; the JAX package's crash recovery (``chaos.recovery``,
-    not ported yet) treats the first fatal crash round as the point where
-    the coordinating process dies."""
+    is identical; crash recovery (``chaos.recovery.fatal_crash_rounds``)
+    reads the fatal crash rounds as the points where the coordinating
+    process dies."""
     rate: float = 0.0
     rounds: Tuple[int, ...] = ()
     seed: int = 0

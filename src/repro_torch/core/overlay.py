@@ -38,6 +38,12 @@ Two engines, bit-identical on the same seed:
     training and merging run as a Python loop on the device with no host
     round trip, and all DLT writes happen in one flush at the end.
 
+Crash recovery: `snapshot()` persists a verified federation snapshot
+(`checkpoint.snapshot`), `run_rounds(..., snapshot_every=K,
+snapshot_dir=...)` takes one after every K rounds, and `restore()` makes a
+fresh overlay adopt a verified snapshot's state, so that the run it
+resumes is bit-identical to the uninterrupted one.
+
 Meshes are not ported yet and raise `NotImplementedError`.
 """
 from __future__ import annotations
@@ -455,9 +461,46 @@ class DecentralizedOverlay:
         return stacked, metrics, tr
 
     # ------------------------------------------------------------------
+    def restore(self, snap) -> None:
+        """Adopt a verified `checkpoint.snapshot.SnapshotState`: the
+        ledger, stats, round index and privacy accountant come from the
+        snapshot, and the consensus gate is fast-forwarded through the
+        instances already run (each is a pure function of seed x index x
+        schedule), so the next round this overlay runs (its data, fault
+        and attack draws, consensus transcript and merge keys) is the one
+        the uninterrupted run would have run.  Only a fresh overlay may
+        restore: resuming over live state would fork the schedules."""
+        if self.round_index != 0 or self.stats or self.gate.history:
+            raise ValueError("restore() requires a fresh overlay "
+                             "(round 0, no consensus history)")
+        self.registry = snap.registry
+        self.stats = [dict(s) for s in snap.stats]
+        self.round_index = int(snap.round_index)
+        if self.accountant is not None:
+            self.accountant.steps = int(snap.accountant_steps)
+        sched, P = self.cfg.fault_schedule, self.cfg.n_institutions
+        self.gate.fast_forward(
+            self.round_index,
+            None if sched is None else (lambda r: sched.faults(r, P)))
+
+    def snapshot(self, snapshot_dir: str, stacked: Pytree,
+                 metadata: Optional[Dict] = None) -> str:
+        """Persist a verified snapshot of the current state at
+        ``snapshot_dir/round_<index>``; returns its path."""
+        # imported here: checkpoint imports core.registry, and with it
+        # this package
+        from repro_torch.checkpoint.snapshot import (
+            save_snapshot, snapshot_path,
+        )
+        path = snapshot_path(snapshot_dir, self.round_index)
+        save_snapshot(path, stacked, self, metadata=metadata)
+        return path
+
+    # ------------------------------------------------------------------
     def run_rounds(self, stacked: Pytree, batches: Pytree,
                    local_step: LocalStepFn, key, n_rounds: int, *,
-                   mesh=None):
+                   mesh=None, snapshot_every: Optional[int] = None,
+                   snapshot_dir: Optional[str] = None):
         """R overlay rounds with one DLT flush, bit-identical to R `round`
         calls.
 
@@ -470,7 +513,15 @@ class DecentralizedOverlay:
         the ledger is written once at the end.
 
         Returns ``(stacked, metrics, transcripts)``; metrics leaves gain a
-        leading (R,) round axis."""
+        leading (R,) round axis.
+
+        With `snapshot_dir` (and a cadence ``snapshot_every=K``, default
+        R) the R rounds run as ceil(R/K) chunks of this same round loop,
+        each followed by a verified snapshot, so snapshotting changes no
+        bit.  A crashed run resumes by restoring the newest verified
+        snapshot into a fresh overlay (`checkpoint.snapshot
+        .latest_verified_snapshot`, then `restore`) and running the
+        remaining rounds."""
         if mesh is not None:
             raise NotImplementedError("mesh-parallel federations are not "
                                       "ported to the PyTorch overlay yet")
@@ -491,6 +542,29 @@ class DecentralizedOverlay:
             round_keys = key
         else:
             round_keys = prng.split(key, R)
+        # everything that can raise is checked before phase 1, which
+        # advances the gate: an error after it would leave the overlay out
+        # of step with its own round index
+        if snapshot_every is not None:
+            if snapshot_dir is None:
+                raise ValueError("snapshot_every requires snapshot_dir")
+            if int(snapshot_every) <= 0:
+                raise ValueError("snapshot_every must be positive")
+
+        if snapshot_dir is not None:
+            K = R if snapshot_every is None else int(snapshot_every)
+            all_metrics, all_trs = [], []
+            for lo in range(0, R, K):
+                hi = min(lo + K, R)
+                stacked, metrics, trs = self.run_rounds(
+                    stacked, tree_map(lambda x: x[lo:hi], batches),
+                    local_step, round_keys[lo:hi], hi - lo)
+                self.snapshot(snapshot_dir, stacked)
+                all_metrics.append(metrics)
+                all_trs.extend(trs)
+            metrics = {k: torch.cat([m[k] for m in all_metrics])
+                       for k in all_metrics[0]}
+            return stacked, metrics, all_trs
 
         # phase 1 (host): every consensus instance of the R rounds, with
         # its faults, survivor list and participation mask (None for a

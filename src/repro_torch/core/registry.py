@@ -3,7 +3,11 @@
 The ledger stores only fingerprints of model updates (SHA-256 over the
 weight bytes), never weights or data: an append-only hash chain with an
 incremental Merkle log over it, and provenance links from every merged
-model to the fingerprints it was merged from.
+model to the fingerprints it was merged from.  `to_dict` / `from_dict`
+serialize the whole ledger for crash-recovery snapshots
+(`checkpoint.snapshot`): a restored replica re-derives its Merkle state
+from the chain.  `suitable_models` answers the paper's "other suitable
+registered models" query without revealing weights.
 
 Fingerprints equal the JAX package's for the same bytes: the hash covers
 ``str(treedef)`` of the JAX pytree (reproduced by `treedef_str`), then
@@ -182,6 +186,28 @@ class ModelRegistry:
             log.append(tx.hash())
         return log
 
+    def suitable_models(self, arch_family: str,
+                        exclude_institution: Optional[str] = None
+                        ) -> List[Transaction]:
+        """Paper step 5: 'checks for other suitable registered models'."""
+        return [tx for tx in self.chain
+                if tx.arch_family == arch_family
+                and tx.kind in ("register", "rolling_update")
+                and tx.institution != exclude_institution]
+
+    def lineage(self, fp: str) -> List[str]:
+        """Provenance chain of a fingerprint (depth-first over parents)."""
+        by_fp = {tx.model_fingerprint: tx for tx in self.chain}
+        out, stack, seen = [], [fp], set()
+        while stack:
+            cur = stack.pop()
+            if cur in seen or cur not in by_fp:
+                continue
+            seen.add(cur)
+            out.append(cur)
+            stack.extend(by_fp[cur].parents)
+        return out
+
     def clone(self) -> "ModelRegistry":
         replica = ModelRegistry(logical_clock=self.logical_clock)
         replica.chain = list(self.chain)
@@ -205,3 +231,21 @@ class ModelRegistry:
                     return False
             rebuilt.append(tx.hash())
         return rebuilt.root() == self._merkle.root()
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-serializable image of the whole ledger (a snapshot's
+        payload).  The Merkle state is derived, not stored: `from_dict`
+        re-appends every transaction, so a tampered snapshot cannot bring
+        in a root that disagrees with its own chain."""
+        return {"logical_clock": self.logical_clock,
+                "chain": [asdict(tx) for tx in self.chain]}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelRegistry":
+        reg = cls(logical_clock=bool(d.get("logical_clock", False)))
+        for row in d["chain"]:
+            row = dict(row)
+            row["parents"] = tuple(row["parents"])
+            reg.chain.append(Transaction(**row))
+        reg._rebuild_merkle()
+        return reg

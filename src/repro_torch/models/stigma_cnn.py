@@ -56,14 +56,20 @@ def init_params(cfg: CNNConfig, generator: torch.Generator,
 @contextlib.contextmanager
 def full_fp32():
     """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the block
-    (forward and backward alike), the caller's settings restored after."""
+    (forward and backward alike), and cuDNN held to its deterministic
+    algorithms, the caller's settings restored after.  Without the last,
+    cuDNN may pick convolution backward algorithms that sum with atomics:
+    two same-seed federations on an H100 then end rounds apart in most of
+    their parameters, and a run resumed from a snapshot is no replay of
+    the run that took it."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
+    saved = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
     cudnn.allow_tf32 = matmul.allow_tf32 = False
+    cudnn.deterministic = True
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
 
 
 def forward(cfg: CNNConfig, params: Params, images: torch.Tensor) -> torch.Tensor:

@@ -5,5 +5,5 @@ from repro_torch.serving.federated import (
     FederatedServer, FingerprintMismatchError, LedgerRootMismatchError,
     ModelStore, ModelUnavailableError, NoCommittedModelError,
     ServingVerificationError, TamperedLedgerError, VerifiedModel,
-    latest_committed, pull_latest_model,
+    latest_committed, pull_from_snapshot, pull_latest_model,
 )

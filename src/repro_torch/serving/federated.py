@@ -23,14 +23,16 @@ bytes the federation committed.  `pull_latest_model` is that gate:
      (`FingerprintMismatchError` on any bit flip).
 
 Any failure raises; params are never handed to an engine unverified.
+`pull_from_snapshot` runs the same gate against a crash-recovery snapshot
+(`checkpoint.snapshot`), so a rebooted serving tier refuses corrupt or
+torn state (`SnapshotError`) as a rebooted coordinator does.
 
 `FederatedServer` wires the gate to the engine: construct = verified pull
 + `ServingEngine` on the committed params; `refresh()` re-pulls
 mid-traffic and hot-swaps when a newer round committed.
 
-Not ported yet (ROADMAP queue A): `pull_from_snapshot` (it needs
-``checkpoint/``), and `serving_workload` / `plan_serving` (they need
-``continuum/placement.py`` and ``costmodel.py``).
+Not ported yet (ROADMAP queue A): `serving_workload` / `plan_serving`
+(they need ``continuum/placement.py`` and ``costmodel.py``).
 """
 from __future__ import annotations
 
@@ -38,11 +40,13 @@ import dataclasses
 import json
 from typing import Any, Dict, Optional
 
+from repro_torch.checkpoint.snapshot import latest_verified_snapshot
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.merkle import verify_inclusion
 from repro_torch.core.registry import (
     ModelRegistry, Transaction, fingerprint_pytree,
 )
+from repro_torch.pytree import tree_map
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
 Pytree = Any
@@ -51,7 +55,7 @@ __all__ = [
     "FederatedServer", "FingerprintMismatchError", "LedgerRootMismatchError",
     "ModelStore", "ModelUnavailableError", "NoCommittedModelError",
     "ServingVerificationError", "TamperedLedgerError", "VerifiedModel",
-    "latest_committed", "pull_latest_model",
+    "latest_committed", "pull_from_snapshot", "pull_latest_model",
 ]
 
 
@@ -217,6 +221,28 @@ def pull_latest_model(registry: ModelRegistry, store: ModelStore, *,
     return VerifiedModel(params=params, tx=tx, fingerprint=fp,
                          ledger_root=root, version=tx.index,
                          parents_verified=parents_verified)
+
+
+def pull_from_snapshot(snapshot_dir: str, like: Pytree, *,
+                       cfg=None, trusted_root: Optional[str] = None,
+                       arch_family: Optional[str] = None,
+                       merged_row: int = 0) -> VerifiedModel:
+    """The verified pull of a rebooted serving tier: restore the newest
+    verified federation snapshot (`checkpoint.snapshot` refuses corrupt,
+    torn or config-mismatched state with `SnapshotError`), take the merged
+    params from row `merged_row` of the stacked carry (after a committed
+    alpha = 1.0 merge every row holds the merged model) to the host, and
+    run the `pull_latest_model` gate against the restored ledger.  The
+    newest round must have committed: an aborted last round leaves the
+    carry on per-institution params, which the fingerprint gate refuses."""
+    stacked, state, _, _ = latest_verified_snapshot(snapshot_dir, like,
+                                                    cfg=cfg)
+    merged = tree_map(lambda a: a[merged_row].cpu(), stacked)
+    store = ModelStore()
+    store.put(merged)
+    return pull_latest_model(state.registry, store,
+                             trusted_root=trusted_root,
+                             arch_family=arch_family)
 
 
 # ----------------------------------------------------------------------

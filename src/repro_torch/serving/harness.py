@@ -14,7 +14,7 @@ battery cover both a cache-shaped and a constant-size decode state.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,15 +110,19 @@ class LMFederation:
         return prng.PRNGKey(self.seed * 1000 + rnd)
 
     # -- training -------------------------------------------------------
-    def run_rounds(self, n_rounds: int) -> Tuple[Dict, list]:
+    def run_rounds(self, n_rounds: int, *,
+                   snapshot_every: Optional[int] = None,
+                   snapshot_dir: Optional[str] = None) -> Tuple[Dict, list]:
         """The next n rounds through the batched engine, one DLT flush;
-        repeated calls chunk exactly like the chaos harness."""
+        repeated calls chunk exactly like the chaos harness, and
+        `snapshot_every` / `snapshot_dir` snapshot as its do."""
         start = self.overlay.round_index
         toks = torch.stack([self._round_batches(start + r)
                             for r in range(n_rounds)])
         keys = np.stack([self.round_key(start + r) for r in range(n_rounds)])
         self.stacked, metrics, trs = self.overlay.run_rounds(
-            self.stacked, toks, self.local_step, keys, n_rounds)
+            self.stacked, toks, self.local_step, keys, n_rounds,
+            snapshot_every=snapshot_every, snapshot_dir=snapshot_dir)
         return metrics, trs
 
     # -- serve-path handoff ----------------------------------------------
@@ -133,6 +137,12 @@ class LMFederation:
         """Put the merged model into a weight store for a serving
         replica's verified pull; returns its fingerprint."""
         return store.put(self.merged_params())
+
+    def snapshot(self, snapshot_dir: str) -> str:
+        """Persist a verified snapshot at the current round, which a
+        rebooted serving tier pulls from (`federated.pull_from_snapshot`);
+        returns its path."""
+        return self.overlay.snapshot(snapshot_dir, self.stacked)
 
     def chain_digest(self) -> str:
         return self.overlay.registry.chain[-1].hash()

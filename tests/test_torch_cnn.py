@@ -91,29 +91,34 @@ def test_param_tree_layout_and_counts_match():
 
 
 def test_full_fp32_turns_tf32_off_and_restores(monkeypatch):
-    """The federation's local step trains with TF32 off, and the process's
-    own settings come back afterwards, also after an exception."""
+    """The federation's local step trains with TF32 off and cuDNN held to
+    its deterministic algorithms, and the process's own settings come back
+    afterwards, also after an exception."""
     from repro_torch.chaos.harness import CNNFederation
 
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     monkeypatch.setattr(cudnn, "allow_tf32", True)
     monkeypatch.setattr(matmul, "allow_tf32", True)
+    monkeypatch.setattr(cudnn, "deterministic", False)
     seen = []
     loss_fn = tcnn.loss_fn
 
     def spy(*args):
-        seen.append((cudnn.allow_tf32, matmul.allow_tf32))
+        seen.append((cudnn.allow_tf32, matmul.allow_tf32,
+                     cudnn.deterministic))
         return loss_fn(*args)
 
     monkeypatch.setattr(tcnn, "loss_fn", spy)
     CNNFederation(None, 0, n_institutions=2, local_steps=1, image_size=8,
                   device="cpu").run_round(0)
-    assert seen and all(s == (False, False) for s in seen)
-    assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    assert seen and all(s == (False, False, True) for s in seen)
+    assert (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic) == \
+        (True, True, False)
     with pytest.raises(RuntimeError):
         with tcnn.full_fp32():
             raise RuntimeError("inside")
-    assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    assert (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic) == \
+        (True, True, False)
 
 
 def test_init_params_seeded_and_scaled():

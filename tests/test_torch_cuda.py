@@ -371,6 +371,30 @@ def test_federation_on_card_matches_cpu(cuda, mode):
     assert gpu.overlay.registry.verify_log()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_same_seed_runs_bit_equal_and_crash_resumes(cuda, mode, tmp_path):
+    """Two same-seed P = 5 federations end bit-equal on the card (the
+    local step's cuDNN convolutions are held deterministic), and a run
+    killed at round 3 resumes from its round-2 snapshot bit-identical."""
+    from repro_torch.chaos import (
+        CoordinatorCrash, Dropout, compose, golden_run, simulate_crash_run,
+    )
+    sched = compose(Dropout(rate=0.3, seed=5),
+                    CoordinatorCrash(rounds=(3,), fatal=True))
+
+    def mk():
+        return CNNFederation(
+            sched, 0, n_institutions=5, image_size=16, width_scale=0.25,
+            device=cuda, secure_domain="int" if mode == "int" else "float",
+            dp=DPConfig(0.5, 1.0) if mode == "dp" else None)
+    golden = golden_run(mk, 6)
+    assert golden_run(mk, 6) == golden
+    rep = simulate_crash_run(mk, 6, 3, str(tmp_path), snapshot_every=2)
+    assert rep.restored_round == 2 and rep.rounds_replayed == 1
+    assert (rep.chain_digest, rep.params_fingerprint) == golden
+
+
 # ----------------------------------------------------------------------
 # the legacy two-stage round's aggregates: any P, ragged N, narrow params
 

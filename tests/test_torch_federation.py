@@ -260,6 +260,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "new = {'repro_torch.checkpoint.store', 'repro_torch.checkpoint"
+        ".snapshot', 'repro_torch.chaos.recovery'}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -34,6 +34,8 @@ from repro.serving import federated as jax_federated
 from repro.serving.harness import LMFederation as JaxLMFederation
 from repro.serving.harness import TINY_SERVE as JAX_TINY_SERVE
 from repro_torch import models
+from repro_torch.chaos.recovery import CORRUPTION_MODES, corrupt_snapshot
+from repro_torch.checkpoint import SnapshotError, list_snapshots
 from repro_torch.convert import params_from_jax
 from repro_torch.core.merkle import verify_inclusion
 from repro_torch.core.registry import ModelRegistry, fingerprint_pytree
@@ -41,7 +43,8 @@ from repro_torch.pytree import tree_flatten, tree_map
 from repro_torch.serving import (
     FederatedServer, FingerprintMismatchError, LedgerRootMismatchError,
     ModelStore, ModelUnavailableError, NoCommittedModelError, Request,
-    ServeConfig, ServingEngine, TamperedLedgerError, pull_latest_model,
+    ServeConfig, ServingEngine, TamperedLedgerError, pull_from_snapshot,
+    pull_latest_model,
 )
 from repro_torch.serving import federated
 from repro_torch.serving.harness import LMFederation, TINY_SERVE
@@ -266,6 +269,42 @@ def test_pull_missing_weights_and_empty_ledger_rejected(feds, store):
         pull_latest_model(ModelRegistry(logical_clock=True), store)
     with pytest.raises(NoCommittedModelError):
         pull_latest_model(reg, store, arch_family="no-such-arch")
+
+
+@pytest.mark.parametrize("mode", CORRUPTION_MODES)
+def test_tamper_corrupted_snapshot_rejected(feds, tmp_path, mode):
+    """A rebooted serving tier refuses each of the four corruptions of its
+    snapshot, as the reference's (test_serving_federated.py) does."""
+    fed = feds["port"]
+    snap_dir = str(tmp_path / mode)
+    fed.snapshot(snap_dir)
+    (_, path), = list_snapshots(snap_dir)
+    corrupt_snapshot(path, mode)
+    with pytest.raises(SnapshotError):
+        pull_from_snapshot(snap_dir, fed.stacked, cfg=fed.overlay.cfg)
+
+
+def test_pull_from_verified_snapshot_serves(feds, store, tmp_path):
+    """A verified snapshot gives the live pull's model, and a server fed
+    from it generates the live server's tokens."""
+    fed = feds["port"]
+    snap_dir = str(tmp_path / "clean")
+    fed.snapshot(snap_dir)
+    model = pull_from_snapshot(snap_dir, fed.stacked, cfg=fed.overlay.cfg,
+                               arch_family=TINY_SERVE.name)
+    want = pull_latest_model(fed.overlay.registry, store)
+    assert model.fingerprint == want.fingerprint
+    assert model.version == want.version
+    assert model.ledger_root == want.ledger_root
+    rebooted = ModelStore()
+    rebooted.put(model.params)
+    tokens = []
+    for s in (rebooted, store):
+        srv = FederatedServer(TINY_SERVE, fed.overlay.registry, s, SCFG,
+                              trusted_root=model.ledger_root, device="cpu")
+        _submit(srv.engine, range(4))
+        tokens.append(_gen_by_uid(srv.engine.run()))
+    assert tokens[0] == tokens[1] and len(tokens[0]) == 4
 
 
 def test_federated_refresh_hot_swaps_only_on_new_round():
