@@ -41,6 +41,23 @@ after:
   is corrupted in each of four ways and the failover falls back to the
   one before; the same for the P = 32 fleet, whose round 4 (half the
   fleet stranded, and the fatal crash) aborts with every row untouched;
+* the same federation placed on the computing continuum by the cost model
+  (``continuum.placement``): P = 16 hospitals at full width assigned to
+  cloud, fog and edge resources, 3 rounds of secure_mean in each domain
+  under the modelled straggler delays, once with no deadline (every round
+  waits for the slowest tier) and once with a deadline that drops the
+  slowest tier: the cost model's participation mask reaches the fused
+  kernels, the ledger's survivors are the mask's, dropped rows come back
+  untouched, and the same schedule at a small width gives the CPU's
+  params;
+* the device tier (``core.device_tier``) at the repo's headline size: P =
+  64 hospitals, each fronting D = 16,384 simulated personal devices (2^20
+  device updates a round) in chunks of 1,024 with dropout and late
+  devices admitted the next round, merged by ``hierarchical_device``: a
+  warm-up and 4 rounds through ``run_rounds``, equal bit for bit to an
+  eager loop; one hospital's sweep identical at chunks of 256 to 16,384;
+  every round's device counts and weights equal to a numpy recount; the
+  card equal to the CPU at P = 8 x D = 2,048;
 * the legacy two-stage MPC round (``core.secure_agg
   .secure_rolling_update``: masks drawn on the card, shares materialized,
   one aggregate kernel) in both domains, at P = 10 on the CNN's N and at
@@ -109,17 +126,33 @@ import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM rates.  HBM bytes/s, float32 ops/s (an add or a multiply is
-# one op) and the bf16 tensor-core rate from NVIDIA's data sheet.
-# Per-pipe rates from the CUDA C++ Programming Guide's throughput table
+
+def _card():
+    """`repro_torch.continuum.H100_SXM`, from this checkout's
+    ``continuum/resources.py`` loaded on its own: `--time-kernels` may put
+    another tree's package on the path, one older than the constant."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_resources",
+        ROOT / "src" / "repro_torch" / "continuum" / "resources.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod       # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod.H100_SXM
+
+
+# H100 SXM rates.  HBM bytes/s and the bf16 tensor-core rate are
+# `H100_SXM`'s (NVIDIA's data sheet); float32 ops/s (an add or a multiply
+# is one op) from the same sheet.  Per-pipe rates from the CUDA C++ Programming Guide's throughput table
 # for compute capability 9.0, in results per clock per SM, x 132 SMs x the
 # 1,980 MHz boost clock: int32 shifts and logic run on the INT32 pipe
 # (64), int32 multiplies on the FMA pipe (64), int32 adds on either;
 # conversions (16) and the special functions log / sqrt / cos (16) are
 # counted against their own rate.
-HBM_BYTES_PER_S = 3.35e12
+H100 = _card()
+HBM_BYTES_PER_S = H100.hbm_bandwidth
 FP32_OPS_PER_S = 67e12
-BF16_TC_FLOPS = 989e12
+BF16_TC_FLOPS = H100.peak_flops_bf16
 PER_CLOCK = 132 * 1.98e9
 ALU_OPS_PER_S = IMAD_OPS_PER_S = 64 * PER_CLOCK
 CVT_OPS_PER_S = SFU_OPS_PER_S = 16 * PER_CLOCK
@@ -2686,6 +2719,341 @@ def fleet_recovery_path(dev, kernels, fed_kwargs, totals_wide):
         del recorders, probe, gold_rec, doomed_rec, failover_rec
 
 
+# ----------------------------------------------------------------------
+# the computing continuum: the device tier and the placement
+
+DEV_P, DEV_D, DEV_CHUNK = 64, 16_384, 1_024   # fig_device_tier.py's headline
+DEV_FEATURES = 32
+DEV_ROUNDS = 4                     # timed rounds after a warm-up round
+DEV_CHUNKS = (256, 1_024, 4_096)   # and the stacked baseline, one chunk of D
+DEV_PARITY = (8, 2_048, 256)       # (P, D, chunk) held card == CPU
+PLACE_P, PLACE_ROUNDS = 16, 3
+
+
+def device_tier_parts(P, D, chunk, dev, seed=0):
+    """fig_device_tier.py's configuration at P x D: the shard spec, the
+    DeviceTierConfig, data and update functions, the overlay config and
+    the base params on `dev`."""
+    from repro_torch.chaos import DeviceSchedule
+    from repro_torch.core import OverlayConfig, ProtocolParams
+    from repro_torch.core.device_tier import DeviceTierConfig
+    from repro_torch.data import (
+        DeviceShardSpec, DirichletPartitioner, institution_class_mixes,
+        make_centroid_pull_update, make_device_data_fn,
+    )
+    spec = DeviceShardSpec(n_classes=4, n_features=DEV_FEATURES,
+                           min_samples=1, max_samples=16, seed=seed)
+    mixes = institution_class_mixes(
+        DirichletPartitioner(alpha=0.5, n_institutions=P, seed=seed), 4)
+    sched = DeviceSchedule(dropout_rate=0.1, straggler_rate=0.15,
+                           max_delay_s=2.0, deadline_s=1.5, seed=seed)
+    cfg = DeviceTierConfig(n_devices=D, chunk_size=chunk, max_weight=16,
+                           staleness_bound=1, faults=sched)
+    ocfg = OverlayConfig(n_institutions=P, local_steps=1,
+                         merge="hierarchical_device", merge_subtree="params",
+                         consensus_params=ProtocolParams.for_fleet(P))
+    base = {"w": torch.linspace(-1.0, 1.0, DEV_FEATURES, device=dev)}
+    return spec, cfg, make_device_data_fn(spec, mixes), \
+        make_centroid_pull_update(spec), ocfg, base
+
+
+def leaves_same_bits(a, b):
+    """Every leaf of two trees equal bit for bit (on the host: the card
+    compares few uint32 operations)."""
+    from repro_torch.pytree import tree_flatten
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and np.array_equal(
+            x.cpu().numpy().reshape(-1).view(np.uint8),
+            y.cpu().numpy().reshape(-1).view(np.uint8))
+        for x, y in zip(la, lb))
+
+
+def device_weights_oracle(spec, sched, P, D, rounds):
+    """Per round, each institution's on-time and late device counts and
+    admitted weight, recounted on the host with numpy from
+    `DeviceSchedule.draw_host` and the weight hash (staleness bound 1: a
+    round admits the weight of the round before's late devices)."""
+    from repro_torch.chaos import rng
+    from repro_torch.data.pipeline import _DEV_STREAM_WEIGHT
+    inst, ids = np.arange(P)[:, None], np.arange(D)[None, :]
+    span = spec.max_samples - spec.min_samples + 1
+    out, banked = [], np.zeros(P, np.int64)
+    for r in range(rounds):
+        on, late = sched.draw_host(r, inst, ids)
+        w = spec.min_samples + (rng.hash_u32(
+            spec.seed, _DEV_STREAM_WEIGHT, r, inst, ids) % np.uint32(span))
+        w = w.astype(np.int64)
+        out.append({"on_time": on.sum(1), "late": late.sum(1),
+                    "weight": (w * on).sum(1) + banked,
+                    "stale_w": (w * late).sum(1)})
+        banked = out[-1]["stale_w"]
+    return out
+
+
+def device_tier_path(dev, kernels):
+    """The device tier at the repo's headline size (benchmarks/
+    fig_device_tier.py): P = 64 hospitals x D = 16,384 personal devices =
+    2^20 device updates a round, chunks of 1,024, 10% dropout, 15%
+    stragglers (late past 1.5 of 2 s, admitted the next round),
+    `hierarchical_device` merge, `ProtocolParams.for_fleet(64)`; a warm-up
+    round, then DEV_ROUNDS through `run_rounds`.  Gates: (1) `run_rounds`
+    equals an eager `round()` loop on the card bit for bit on every leaf;
+    (2) one institution's sweep at chunks 256, 1,024, 4,096 and the
+    stacked baseline (16,384) gives identical limbs, stats and means; (3)
+    every round's on-time and late counts and device weights, and the
+    final stale weights, equal a numpy recount from
+    `DeviceSchedule.draw_host` and the weight hash; (4) at P = 8, D =
+    2,048 the card's local phase equals the CPU's bit for bit (integer
+    leaves and the device-tier means) and its final state after 2 rounds
+    equals the CPU's, integer leaves bit for bit and params within 1e-6.
+    No kernel of ours is on this path (counts 0 before, asserted 0
+    after)."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.core import DecentralizedOverlay
+    from repro_torch.core.device_tier import (
+        device_sweep, device_sweep_ids, device_sweep_stacked,
+        make_device_local_step, make_device_state,
+    )
+    P, D, R = DEV_P, DEV_D, DEV_ROUNDS
+    spec, cfg, data_fn, update_fn, ocfg, base = device_tier_parts(
+        P, D, DEV_CHUNK, dev)
+    local_step = make_device_local_step(cfg, data_fn, update_fn)
+    ids = device_sweep_ids(1 + R, 1, P, device=dev)
+    keys = prng.split(prng.PRNGKey(0), 1 + R)
+    for k in kernels.values():
+        k["wrapper"].launches = k["wrapper"].launches_wide = 0
+    ov = DecentralizedOverlay(ocfg)
+    state, m0, _ = ov.run_rounds(make_device_state(base, P), ids[:1],
+                                 local_step, keys[:1], 1)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics, trs = ov.run_rounds(state, ids[1:], local_step, keys[1:],
+                                        R)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / R
+    ours = sum(k["wrapper"].launches + k["wrapper"].launches_wide
+               for k in kernels.values())
+    assert ours == 0, "the device tier launched a kernel of ours"
+    assert all(t.committed for t in trs), [t.committed for t in trs]
+    w = state["params"]["w"]
+    assert bool(torch.isfinite(w).all()) and bool((w == w[0]).all())
+    assert ov.registry.verify_log()
+
+    # gate 1: the eager loop on the card
+    ov_e = DecentralizedOverlay(ocfg)
+    eager = make_device_state(base, P)
+    t1 = time.perf_counter()
+    for r in range(1 + R):
+        eager, _, _ = ov_e.round(eager, ids[r], local_step, keys[r])
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1e3 / (1 + R)
+    assert leaves_same_bits(eager, state), "run_rounds != eager rounds"
+    assert [tx.model_fingerprint for tx in ov_e.registry.chain] == \
+        [tx.model_fingerprint for tx in ov.registry.chain]
+
+    # gate 3: the host recount of every round
+    oracle = device_weights_oracle(spec, cfg.faults, P, D, 1 + R)
+    per_round = [{k: m0[k][0] for k in m0}] + \
+        [{k: metrics[k][r] for k in metrics} for r in range(R)]
+    for want, got in zip(oracle, per_round):
+        for key, name in (("on_time", "device_on_time"),
+                          ("late", "device_late"),
+                          ("weight", "device_weight")):
+            np.testing.assert_array_equal(
+                got[name].cpu().numpy().astype(np.int64), want[key])
+    np.testing.assert_array_equal(
+        state["stale_w"].cpu().numpy().astype(np.int64),
+        oracle[-1]["stale_w"])
+    np.testing.assert_array_equal(
+        state["device_w"].cpu().numpy().astype(np.int64),
+        oracle[-1]["weight"])
+    on_time = sum(int(o["on_time"].sum()) for o in oracle)
+    late = sum(int(o["late"].sum()) for o in oracle)
+
+    # gate 2: one institution's sweep at each chunk size, from a stale
+    # buffer that holds late devices
+    inst = 1
+    params = {"w": state["params"]["w"][inst]}
+    stale = {"lo": {"w": state["stale_lo"]["w"][inst]},
+             "hi": {"w": state["stale_hi"]["w"][inst]},
+             "w": state["stale_w"][inst]}
+    sweep_id = torch.tensor(1 + R, dtype=torch.int32, device=dev)
+    inst_id = torch.tensor(inst, dtype=torch.int32, device=dev)
+    sweeps, peaks, sweep_ms = {}, {}, {}
+    for chunk in DEV_CHUNKS + (D,):
+        c = dataclasses.replace(cfg, chunk_size=chunk)
+        fn = device_sweep_stacked if chunk == D else device_sweep
+        fn(params, sweep_id, inst_id, stale, c, data_fn, update_fn)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t2 = time.perf_counter()
+        out = fn(params, sweep_id, inst_id, stale, c, data_fn, update_fn)
+        torch.cuda.synchronize()
+        sweep_ms[chunk] = (time.perf_counter() - t2) * 1e3
+        peaks[chunk] = torch.cuda.max_memory_allocated() - held
+        sweeps[chunk] = out
+    for chunk in sweeps:
+        assert leaves_same_bits(sweeps[chunk], sweeps[DEV_CHUNK]), chunk
+    assert int(sweeps[D][2]["late"]) > 0 and int(stale["w"]) > 0
+
+    # gate 4: the card against the CPU at P = 8, D = 2,048
+    Ps, Ds, Cs = DEV_PARITY
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        _, c, dfn, ufn, oc, b = device_tier_parts(Ps, Ds, Cs, where)
+        step = make_device_local_step(c, dfn, ufn)
+        sids = device_sweep_ids(2, 1, Ps, device=where)
+        skeys = prng.split(prng.PRNGKey(1), 2)
+        o = DecentralizedOverlay(oc)
+        local, _ = o.local_phase(make_device_state(b, Ps), sids[0], step)
+        final, _, _ = o.run_rounds(make_device_state(b, Ps), sids, step,
+                                   skeys, 2)
+        runs[where.type] = (local, final)
+    assert leaves_same_bits(runs["cuda"][0], runs["cpu"][0]), \
+        "the card's sweep differs from the CPU's"
+    g_final, c_final = runs["cuda"][1], runs["cpu"][1]
+    for k in g_final:
+        if k == "params":
+            np.testing.assert_allclose(g_final[k]["w"].cpu().numpy(),
+                                       c_final[k]["w"].numpy(), atol=1e-6,
+                                       rtol=0)
+        else:
+            assert leaves_same_bits(g_final[k], c_final[k]), k
+    params_bits = leaves_same_bits(g_final["params"], c_final["params"])
+
+    # where a round's time goes on the card (a profiled extra round)
+    one = device_sweep_ids(1, 1, P, start_round=1 + R, device=dev)
+    prof = device_us(lambda i: ov.run_rounds(state, one, local_step,
+                                             keys[:1], 1), 1)
+    busy = sum(sum(v) for v in prof.values()) / 1e3
+    activities = sum(len(v) for v in prof.values())
+    top = sorted(((k, sum(v) / 1e3) for k, v in prof.items()),
+                 key=lambda kv: -kv[1])[:4]
+    print(f"device tier path P={P} x D={D:,} = {P * D:,} devices a round, "
+          f"chunks of {DEV_CHUNK:,}: {ms:.2f} ms/round through run_rounds "
+          f"({P * D / ms * 1e3:,.0f} devices/s; the eager loop "
+          f"{eager_ms:.2f} ms/round) | committed "
+          f"{[t.committed for t in trs]} | {on_time:,} on time and "
+          f"{late:,} late device updates in {1 + R} rounds, every count and "
+          f"weight equal to the host recount | run_rounds == eager, bit for "
+          f"bit | launches of our kernels 0")
+    print(f"  device busy {busy:.2f} ms of {ms:.2f} ms/round (idle "
+          f"{1 - busy / ms:.1%}), {activities:,} device activities a round; "
+          f"top: " + "; ".join(f"{k[:40]} {t:.3f} ms" for k, t in top))
+    print(f"  one institution's sweep of {D:,} devices: "
+          + ", ".join(f"chunk {c:,} {sweep_ms[c]:.2f} ms, peak "
+                      f"{peaks[c] / 2 ** 20:.2f} MiB" for c in DEV_CHUNKS)
+          + f", stacked {sweep_ms[D]:.2f} ms, peak "
+          f"{peaks[D] / 2 ** 20:.2f} MiB | limbs, stats and means identical "
+          f"at every chunk size")
+    print(f"  card == CPU at P={Ps} x D={Ds:,}: the local phase bit for bit, "
+          f"2 rounds' integer leaves bit for bit, params "
+          f"{'bit for bit' if params_bits else 'within 1e-6'}")
+    return ms
+
+
+def placement_path(dev, kernels, totals):
+    """The paper's CNN federation placed on the continuum by the cost model
+    (examples/scale_institutions.py): PLACE_P = 16 hospitals,
+    `assign_institutions(16, FederationWorkload(flops_per_image(STIGMA_CNN,
+    1.0), 500, 5.0))`, full width, 64x64, 2 local steps, batch 8,
+    Dirichlet(0.2) data, `ProtocolParams.for_fleet(16)`, a warm-up round
+    and PLACE_ROUNDS timed rounds of secure_mean float and int.  Without a deadline every round
+    waits for the modelled stragglers (`straggler_wait_s` > 0) and all 16
+    merge; with a deadline at the second-slowest tier's delay the slowest
+    tier drops, a quorum stays, the ledger's survivors equal
+    `PlacementSchedule.faults(...).participation`, the dropped rows come
+    back bit-untouched (`MergeRecorder`), and the cost model's mask
+    reaches the fused P <= 16 kernels (counts 0 before each run, read
+    after, added to `totals`).  The same schedules at width 0.25 and 16x16
+    run on the card and on the CPU: equal survivors, params within atol
+    1e-4."""
+    from repro_torch.chaos.harness import CNNFederation
+    from repro_torch.configs.stigma_cnn import STIGMA_CNN
+    from repro_torch.continuum import (
+        FederationWorkload, PlacementSchedule, assign_institutions,
+    )
+    from repro_torch.core import ProtocolParams
+    from repro_torch.models.stigma_cnn import flops_per_image
+    from repro_torch.pytree import tree_flatten
+    P = PLACE_P
+    wl = FederationWorkload(flops_per_image(STIGMA_CNN, 1.0), 500, 5.0)
+    placements = assign_institutions(P, wl)
+    t = np.asarray([p.round_time_s for p in placements])
+    delays = np.unique(t - t.min())
+    deadline = float(delays[-2])
+    tiers = {}
+    for p in placements:
+        tiers[f"{p.resource} ({p.tier})"] = \
+            tiers.get(f"{p.resource} ({p.tier})", 0) + 1
+    fleet = dict(n_institutions=P, local_steps=2, batch=8,
+                 dirichlet_alpha=0.2,
+                 consensus_params=ProtocolParams.for_fleet(P))
+    for domain in ("float", "int"):
+        name = {"float": "masked_rolling_update",
+                "int": "masked_field_wsum"}[domain]
+        for dl in (None, deadline):
+            sched = PlacementSchedule(placements, deadline_s=dl)
+            part = sched.faults(0, P).participation
+            assert dl is None or P // 2 < part.sum() < P, part
+            fed = CNNFederation(sched, 0, image_size=64, width_scale=1.0,
+                                secure_domain=domain, device=dev, **fleet)
+            recorder = MergeRecorder(fed.overlay)
+            fed.run_rounds(1)                 # warm-up (cuDNN plans)
+            for k in kernels.values():
+                k["wrapper"].launches = k["wrapper"].launches_wide = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, trs = fed.run_rounds(PLACE_ROUNDS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / PLACE_ROUNDS
+            counts = {n: k["wrapper"].launches for n, k in kernels.items()}
+            wide = sum(k["wrapper"].launches_wide for k in kernels.values())
+            for n in counts:
+                totals[n] += counts[n]
+            assert counts[name] == PLACE_ROUNDS and wide == 0, counts
+            assert all(tr.committed for tr in trs)
+            assert all(tr.straggler_wait_s > 0 for tr in trs), \
+                [tr.straggler_wait_s for tr in trs]
+            survivors = [json.loads(tx.metadata)["survivors"]
+                         for tx in fed.overlay.registry.chain
+                         if tx.kind == "rolling_update"]
+            for r, s in enumerate(survivors):
+                want = sched.faults(r, P).participation
+                assert s == [int(i) for i in np.flatnonzero(want)], (r, s)
+            assert recorder.dead_rows == (1 + PLACE_ROUNDS) * int(
+                (~part).sum())
+            assert fed.overlay.registry.verify_log()
+            print(f"placement path P={P} {domain}, deadline "
+                  f"{'none' if dl is None else f'{dl:.4f} s'}: "
+                  f"{ms:.2f} ms/round | survivors {int(part.sum())} of {P} "
+                  f"as the cost model's mask says (dropped rows untouched: "
+                  f"{recorder.dead_rows}) | straggler wait "
+                  f"{[round(tr.straggler_wait_s, 4) for tr in trs]} s | "
+                  f"launches {counts}")
+            del fed, recorder
+        small = dict(image_size=16, width_scale=0.25, secure_domain=domain,
+                     **fleet)
+        sched = PlacementSchedule(placements, deadline_s=deadline)
+        g_fed = CNNFederation(sched, 0, device=dev, **small)
+        c_fed = CNNFederation(sched, 0, device="cpu", **small)
+        _, gtrs = g_fed.run_rounds(PLACE_ROUNDS)
+        _, ctrs = c_fed.run_rounds(PLACE_ROUNDS)
+        assert [tr.survivors for tr in gtrs] == [tr.survivors for tr in ctrs]
+        for a, b in zip(tree_flatten(g_fed.stacked)[0],
+                        tree_flatten(c_fed.stacked)[0]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       atol=1e-4)
+        print(f"  card == CPU under the same deadline at width 0.25, "
+              f"16x16, {PLACE_ROUNDS} rounds ({domain})")
+    print(f"  placement: {', '.join(f'{k} x{v}' for k, v in tiers.items())}"
+          f"; modelled round times {t.min():.4f}-{t.max():.4f} s, "
+          f"deadline {deadline:.4f} s")
+
+
 def copy_snapshot(src, dst, mode):
     """A copy of the snapshot `src` at `dst` for `corrupt_snapshot(dst,
     mode)`: the file the mode rewrites is copied, the payload is
@@ -2962,6 +3330,8 @@ def main() -> int:
     determinism_path(dev, fed_kwargs)
     recovery_main_path(dev, kernels, fed_kwargs, totals)
     fleet_recovery_path(dev, kernels, fed_kwargs, totals_wide)
+    placement_path(dev, kernels, totals)
+    device_tier_path(dev, kernels)
     for name, n in list(totals.items()) + [
             (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"

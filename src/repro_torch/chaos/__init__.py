@@ -4,8 +4,9 @@ federation harness.
   rng.py        counter-based host RNG: fault decisions are pure
                 functions of (seed, round, institution)
   schedule.py   composable FaultSchedules (Dropout, Straggler, Partition,
-                Flapping, CoordinatorCrash) and the RoundFaults record
-                that consensus and the overlay's merges consume
+                Flapping, CoordinatorCrash), the RoundFaults record
+                that consensus and the overlay's merges consume, and
+                DeviceSchedule, the device tier's per-device draws
   scenarios.py  the named chaos matrix (standard_scenarios)
   attacks.py    Byzantine attack models: ByzantineSchedule, apply_attack
                 and the named attack matrix
@@ -18,8 +19,8 @@ from repro_torch.chaos.attacks import (
     draw_attackers,
 )
 from repro_torch.chaos.schedule import (
-    ComposedSchedule, CoordinatorCrash, Dropout, FaultSchedule, Flapping,
-    Partition, RoundFaults, Straggler, compose,
+    ComposedSchedule, CoordinatorCrash, DeviceSchedule, Dropout,
+    FaultSchedule, Flapping, Partition, RoundFaults, Straggler, compose,
 )
 from repro_torch.chaos.recovery import (
     CORRUPTION_MODES, RecoveryReport, corrupt_snapshot, fatal_crash_rounds,
@@ -29,7 +30,7 @@ from repro_torch.chaos.scenarios import standard_scenarios
 
 __all__ = [
     "ATTACK_KINDS", "CORRUPTION_MODES", "ByzantineSchedule",
-    "ComposedSchedule", "CoordinatorCrash", "Dropout", "FaultSchedule",
+    "ComposedSchedule", "CoordinatorCrash", "DeviceSchedule", "Dropout", "FaultSchedule",
     "Flapping", "Partition", "RecoveryReport", "RoundFaults", "Straggler",
     "apply_attack", "attack_scenarios", "compose", "corrupt_snapshot",
     "draw_attackers", "fatal_crash_rounds", "golden_run",

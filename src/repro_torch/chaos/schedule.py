@@ -1,6 +1,6 @@
 """Composable fault schedules for the federation chaos harness, copied
-from the JAX package's ``chaos/schedule.py`` (its ``DeviceSchedule`` waits
-for the device tier).
+from the JAX package's ``chaos/schedule.py``, and `DeviceSchedule`, the
+per-device draws of the device tier, on tensors.
 
 Every fault decision is a pure function of ``(seed, round, institution)``
 via the counter-based RNG in `chaos.rng`, so a fault trace is
@@ -35,6 +35,8 @@ _STREAM_DROPOUT = 0x0D0D
 _STREAM_STRAGGLE = 0x57A6
 _STREAM_CRASH = 0xC0DE
 _STREAM_FLAP = 0xF1AB
+_STREAM_DEV_DROPOUT = 0xDE0D     # device-tier streams, distinct from the
+_STREAM_DEV_STRAGGLE = 0xDE57    # institution streams above
 
 
 @dataclass(frozen=True)
@@ -135,6 +137,74 @@ class Straggler(FaultSchedule):
             part = delay <= self.deadline_s
             delay = np.where(part, delay, 0.0)   # dropped: nobody waits
         return RoundFaults(part, delay, False)
+
+
+@dataclass(frozen=True)
+class DeviceSchedule:
+    """Per-DEVICE fault draws below one institution (the device tier):
+    `Dropout` and `Straggler` one level down, drawn on the device inside
+    the sweep's chunk loop (`rng.uniform_traced`):
+
+      * a device misses the sweep with prob `dropout_rate` (u >= rate
+        participates, as in `Dropout`);
+      * a participant straggles with prob `straggler_rate`, delayed by
+        uniform(0, max_delay_s); a delay PAST `deadline_s` makes it LATE
+        (``delay <= deadline_s`` is still on time, the inclusive boundary
+        of `Straggler` and `placement.participation_mask`).  Late devices
+        are not dropped: the device tier folds their update into the
+        NEXT round's carry (`core.device_tier`).
+
+    Decisions are pure functions of (seed, sweep, institution, device), so
+    `draw` (tensors, on the counters' device) and `draw_host` (numpy)
+    agree bit for bit: the uniforms are exact in float32 and every
+    threshold is a float32 on both paths.  Lateness compares the delay's
+    MAGNITUDE with deadline_s / max_delay_s (algebraically ``mag *
+    max_delay_s > deadline_s``), so no float32-vs-float64 multiply can
+    flip a boundary decision between the two paths.
+    """
+    dropout_rate: float = 0.0
+    straggler_rate: float = 0.0
+    max_delay_s: float = 2.0
+    deadline_s: Optional[float] = None
+    seed: int = 0
+
+    def _thresholds(self):
+        drop = np.float32(self.dropout_rate)
+        strag = np.float32(self.straggler_rate)
+        if self.deadline_s is None or self.max_delay_s <= 0.0:
+            late = np.float32(np.inf)        # nobody is ever late
+        else:
+            late = np.float32(self.deadline_s / self.max_delay_s)
+        return drop, strag, late
+
+    def draw(self, sweep_index, inst_id, device_ids):
+        """(on_time, late) bool tensors over `device_ids`, on their
+        device; no host sync, so it runs under `torch.func.vmap`."""
+        drop_t, strag_t, late_t = (float(t) for t in self._thresholds())
+        u = rng.uniform_traced(self.seed, _STREAM_DEV_DROPOUT, sweep_index,
+                               inst_id, device_ids)
+        alive = u >= drop_t
+        hit = rng.uniform_traced(self.seed, _STREAM_DEV_STRAGGLE,
+                                 sweep_index, inst_id, device_ids)
+        mag = rng.uniform_traced(self.seed, _STREAM_DEV_STRAGGLE + 1,
+                                 sweep_index, inst_id, device_ids)
+        is_late = (hit < strag_t) & (mag > late_t)
+        return alive & ~is_late, alive & is_late
+
+    def draw_host(self, sweep_index, inst_id, device_ids):
+        """Numpy twin of `draw`, the oracle of loop references and
+        checks."""
+        drop_t, strag_t, late_t = self._thresholds()
+        ids = np.asarray(device_ids)
+        u = rng.uniform(self.seed, _STREAM_DEV_DROPOUT, sweep_index,
+                        inst_id, ids)
+        alive = u >= drop_t
+        hit = rng.uniform(self.seed, _STREAM_DEV_STRAGGLE, sweep_index,
+                          inst_id, ids)
+        mag = rng.uniform(self.seed, _STREAM_DEV_STRAGGLE + 1, sweep_index,
+                          inst_id, ids)
+        is_late = (hit < strag_t) & (mag > late_t)
+        return alive & ~is_late, alive & is_late
 
 
 @dataclass(frozen=True)

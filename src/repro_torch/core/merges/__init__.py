@@ -4,7 +4,8 @@
                  the gossip_shift schedule
   toolkit.py     shared masked-reduce primitives (gate, masked mean and
                  abs-max, ring re-stitch)
-  strategies.py  mean | ring | hierarchical | quantized | secure_mean
+  strategies.py  mean | ring | hierarchical | hierarchical_device |
+                 quantized | secure_mean
   robust.py      Byzantine-robust: trimmed_mean | coordinate_median |
                  norm_gated_mean
   partial.py     partial merges: BlockSpec, BlockSchedule and the
@@ -24,9 +25,10 @@ from repro_torch.core.merges.robust import (
     coordinate_median_merge, norm_gated_mean_merge, trimmed_mean_merge,
 )
 from repro_torch.core.merges.strategies import (
-    HierarchicalMerge, MeanMerge, QuantizedMeanMerge, RingMerge,
-    SecureMeanMerge, hierarchical_merge, mean_merge, quantized_mean_merge,
-    ring_merge, secure_mean_merge,
+    HierarchicalDeviceMerge, HierarchicalMerge, MeanMerge,
+    QuantizedMeanMerge, RingMerge, SecureMeanMerge,
+    hierarchical_device_merge, hierarchical_merge, mean_merge,
+    quantized_mean_merge, ring_merge, secure_mean_merge,
 )
 from repro_torch.core.merges.toolkit import (
     gate, mask_nd, masked_abs_max, masked_mean, ring_neighbor_indices,
@@ -36,9 +38,9 @@ from repro_torch.core.merges.toolkit import (
 __all__ = [
     "MergeContext", "MergeStrategy", "available_merges", "get_merge",
     "gossip_shift", "register_merge",
-    "HierarchicalMerge", "MeanMerge",
+    "HierarchicalDeviceMerge", "HierarchicalMerge", "MeanMerge",
     "QuantizedMeanMerge", "RingMerge", "SecureMeanMerge",
-    "hierarchical_merge", "mean_merge",
+    "hierarchical_device_merge", "hierarchical_merge", "mean_merge",
     "quantized_mean_merge", "ring_merge", "secure_mean_merge",
     "BlockSchedule", "BlockSpec", "PartialMerge", "leaf_path",
     "CoordinateMedianMerge", "NormGatedMeanMerge", "TrimmedMeanMerge",

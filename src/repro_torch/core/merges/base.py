@@ -44,6 +44,13 @@ class MergeContext:
                     None or inf never gates
     domain          secure-aggregation arithmetic domain: "float" (pads
                     cancel to fp32 rounding) or "int" (exact Z_2^32 pads)
+    device_weights  optional (P,) per-institution device-weight totals of
+                    this round (a tensor on the rows' device): the summed
+                    sample counts of each institution's device
+                    sub-federation.  The ``hierarchical_device`` merge
+                    weights the institution mean by them; None = no device
+                    tier, and strategies keep None bit-identical to the
+                    plain mean
     block_spec      optional `merges.partial.BlockSpec`: the named
                     partition of the param tree the ``partial`` merge
                     splits on; None makes it delegate to its inner merge
@@ -67,6 +74,7 @@ class MergeContext:
     trim_fraction: float = 0.25
     norm_gate_factor: Optional[float] = 3.0
     domain: str = "float"
+    device_weights: Optional[Any] = None
     block_spec: Optional[Any] = None
     blocks: Optional[Tuple[str, ...]] = None
     inner_merge: str = "mean"

@@ -1,6 +1,8 @@
 """Built-in merge strategies: ``mean``, ``ring`` (one gossip hop),
-``hierarchical`` (group means, then a ring of groups), ``quantized``
-(int8 operands on the wire) and the paper's MPC ``secure_mean``.
+``hierarchical`` (group means, then a ring of groups),
+``hierarchical_device`` (the device-weighted institution mean of a
+two-tier federation), ``quantized`` (int8 operands on the wire) and the
+paper's MPC ``secure_mean``.
 
 Each exists as a keyword-argument function and as a registered
 `MergeStrategy` adapting `MergeContext` onto it.  Every one is
@@ -170,6 +172,39 @@ def quantized_mean_merge(stacked: Pytree, commit=True, *,
     return gate(tree_map(merge, stacked), stacked, commit)
 
 
+def hierarchical_device_merge(stacked: Pytree, commit=True, *,
+                              alpha: float = 1.0,
+                              weights: Optional[torch.Tensor] = None,
+                              mask: Optional[torch.Tensor] = None) -> Pytree:
+    """The institution-level half of the two-tier federation: each row is
+    already the FedAvg of an institution's device sub-federation
+    (`core.device_tier`), so the cross-institution reduction is a mean
+    WEIGHTED by each institution's device-weight total, and the two levels
+    together are one device-weighted FedAvg over P x D devices.
+
+    ``weights=None`` (no device tier) is `mean_merge`, bit for bit.  With
+    `mask`, dropped institutions weigh zero and pass through untouched; a
+    round whose surviving weights are all zero is the identity (decided on
+    the device, without a host sync)."""
+    if weights is None:
+        return mean_merge(stacked, commit, alpha=alpha, mask=mask)
+    w = torch.as_tensor(weights).to(torch.float32)
+    m = None if mask is None else torch.as_tensor(mask).to(torch.bool)
+    if m is not None:
+        w = torch.where(m.to(w.device), w, 0.0)
+    wtot = w.sum()
+    wsafe = torch.clamp(wtot, min=1.0)
+
+    def merge(x):
+        wb = w.to(x.device).reshape((w.shape[0],) + (1,) * (x.dim() - 1))
+        wmean = (x * wb).sum(dim=0, keepdim=True) / wsafe.to(x.device)
+        out = rolling(x, wmean, alpha)
+        if m is not None:
+            out = torch.where(mask_nd(m.to(x.device), x), out, x)
+        return torch.where(wtot.to(x.device) > 0, out, x)
+    return gate(tree_map(merge, stacked), stacked, commit)
+
+
 def secure_mean_merge(stacked: Pytree, commit=True, *, alpha: float, key,
                       mask=None, impl: str = "auto",
                       domain: str = "float") -> Pytree:
@@ -200,6 +235,15 @@ class HierarchicalMerge:
         return hierarchical_merge(stacked, ctx.commit,
                                   group_size=ctx.group_size,
                                   alpha=ctx.alpha, mask=ctx.mask)
+
+
+@register_merge("hierarchical_device")
+class HierarchicalDeviceMerge:
+    def merge(self, stacked: Pytree, ctx: MergeContext) -> Pytree:
+        return hierarchical_device_merge(stacked, ctx.commit,
+                                         alpha=ctx.alpha,
+                                         weights=ctx.device_weights,
+                                         mask=ctx.mask)
 
 
 @register_merge("quantized")

@@ -44,6 +44,11 @@ snapshot_dir=...)` takes one after every K rounds, and `restore()` makes a
 fresh overlay adopt a verified snapshot's state, so that the run it
 resumes is bit-identical to the uninterrupted one.
 
+A stacked state may be a dict: with ``OverlayConfig.merge_subtree`` (by
+default ``"params"``) only that subtree federates, and the rest (optimizer
+state, the device tier's stale buffers and device weights) stays with its
+institution.
+
 Meshes are not ported yet and raise `NotImplementedError`.
 """
 from __future__ import annotations
@@ -101,10 +106,14 @@ class OverlayConfig:
     # blocks.
     inner_merge: str = "mean"      # what "partial" runs on the shared blocks
     merge_subtree: Optional[str] = "params"
-    # Only the MODEL is federated: when the stacked tree is a dict holding
-    # this key, the reference merges that subtree alone.  That mode (model
-    # plus optimizer state) is not ported yet and raises; bare param trees
-    # (this key absent, or None) are merged whole.
+    # Only the MODEL is federated: when the stacked state is a dict holding
+    # this key, that subtree alone is merged, published, DP-noised and
+    # fingerprinted, and every other leaf (optimizer state, the device
+    # tier's stale buffers) stays institution-local.  A state that is not
+    # such a dict (a bare param tree) is merged whole.  The device tier
+    # (core.device_tier) runs in the local step; its round's weight totals
+    # travel in the state: a "device_w" leaf feeds
+    # `MergeContext.device_weights` each round.
 
 
 def stack_params(param_list: List[Pytree]) -> Pytree:
@@ -334,7 +343,7 @@ class DecentralizedOverlay:
             blocks_meta
 
     def _merge_context(self, round_index: int, commit, key,
-                       mask=None) -> MergeContext:
+                       mask=None, device_weights=None) -> MergeContext:
         cfg = self.cfg
         return MergeContext(
             commit=commit, mask=mask, alpha=cfg.alpha,
@@ -343,7 +352,8 @@ class DecentralizedOverlay:
             n_institutions=cfg.n_institutions,
             trim_fraction=cfg.trim_fraction,
             norm_gate_factor=cfg.norm_gate_factor,
-            domain=cfg.secure_domain, block_spec=cfg.block_spec,
+            domain=cfg.secure_domain, device_weights=device_weights,
+            block_spec=cfg.block_spec,
             blocks=self._merge_blocks, inner_merge=cfg.inner_merge,
             block_mask=self._block_mask_row(round_index))
 
@@ -351,13 +361,21 @@ class DecentralizedOverlay:
                ref: Optional[Pytree], round_index: int, part,
                survivors: List[int]):
         """Publish + merge one round under participation `part` ((P,) bool
-        or None): returns (merged, published rows, merged row of the first
-        survivor); the last two feed the ledger."""
+        or None): returns (merged state, published rows, merged row of the
+        first survivor); the last two feed the ledger.
+
+        Subtree mode (``cfg.merge_subtree`` names a key of a dict state):
+        only that subtree is published, DP-noised (against the same
+        subtree of `ref`), merged and fingerprinted; the merged state is
+        ``{**state, sub: merged}``.  A state's ``"device_w"`` leaf, as the
+        local phase left it, is the merge's device weights."""
         sub = self.cfg.merge_subtree
+        full_state = None
+        dw = stacked.get("device_w") if isinstance(stacked, dict) else None
         if sub is not None and isinstance(stacked, dict) and sub in stacked:
-            raise NotImplementedError(
-                f"merging only the {sub!r} subtree of a stacked state is not "
-                f"ported to the PyTorch overlay yet")
+            full_state, stacked = stacked, stacked[sub]
+            if ref is not None:
+                ref = ref[sub]
         device = tree_flatten(stacked)[0][0].device
         mask = None if part is None else torch.from_numpy(part).to(device)
         att, scale = None, None
@@ -366,10 +384,14 @@ class DecentralizedOverlay:
             att = torch.from_numpy(att).to(device)
         merged, published = _publish_merge(
             get_merge(self.cfg.merge), self.cfg.dp, self._attack_kind,
-            stacked, self._merge_context(round_index, committed, key, mask),
+            stacked, self._merge_context(round_index, committed, key, mask,
+                                         device_weights=dw),
             att, scale, ref)
         row = survivors[0] if survivors else 0
-        return merged, published, tree_map(lambda x: x[row], merged)
+        merged_row = tree_map(lambda x: x[row], merged)
+        if full_state is not None:
+            merged = {**full_state, sub: merged}
+        return merged, published, merged_row
 
     def _round_record(self, round_index: int, tr: Transcript,
                       survivors: List[int], host_stacked,

@@ -1,10 +1,15 @@
-"""Synthetic GLENDA-like frames for the paper's CNN, split across hospitals.
+"""Synthetic GLENDA-like frames for the paper's CNN, split across hospitals,
+and the device tier's per-device shards.
 
 Numpy copies of the JAX package's ``DirichletPartitioner`` and
 ``SyntheticGlendaDataset``: both are pure functions of their numpy seeds,
 so the port's batches are byte-identical to the JAX package's.  Data is
 partitioned per institution and never mixes (paper Gap 1); each
 institution's frames carry a camera bias (non-IID).
+
+The device tier's shards (`DeviceShardSpec`, `make_device_data_fn`) are
+counter-PRG functions of (seed, sweep, institution, device) drawn on the
+device, bit-equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -12,6 +17,9 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.chaos.rng import hash_u32_traced, uniform_traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +47,11 @@ class DirichletPartitioner:
         a = min(self.alpha, 1e9)        # dirichlet rejects inf; 1e9 ~ uniform
         return rng.dirichlet(
             np.full(self.n_institutions, a, np.float64), size=n_classes)
+
+    def proportions(self, n_classes: int) -> np.ndarray:
+        """(n_classes, P): row c is class c's institution split, the exact
+        proportions `assign` deals by (both draw first from the stream)."""
+        return self._proportions(self._rng(), n_classes)
 
     def assign(self, labels: np.ndarray) -> np.ndarray:
         """(n_samples,) institution id per sample."""
@@ -71,6 +84,135 @@ class DirichletPartitioner:
                 sizes[donor] -= 1
                 sizes[i] += 1
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceShardSpec:
+    """Per-DEVICE synthetic shards under one institution (the device tier).
+
+    A device's shard is a pure function of ``(seed, sweep, institution,
+    device)`` through the counter RNG, generated on the device one chunk
+    at a time, so no (D, ...) dataset is ever materialized:
+
+      * ``label``: the device's dominant pathology class, drawn from its
+        institution's Dirichlet class mix (`institution_class_mixes`), the
+        label skew of `DirichletPartitioner` one tier down;
+      * ``pull``: uniform [0, 1) local step-size jitter;
+      * ``weight``: integer sample count in [min_samples, max_samples],
+        the device's FedAvg aggregation weight.
+
+    `make_centroid_pull_update` gives each class a fixed unit centroid and
+    lets a device's update pull the model toward its class centroid, one
+    SGD step on 1/2 ||w - c_label||^2 scaled by ``pull``.  The update is
+    elementwise in the params, so the sweep has no float reduction whose
+    order a chunk size could change.
+    """
+    n_classes: int = 4
+    n_features: int = 16
+    min_samples: int = 1
+    max_samples: int = 64
+    pull_lr: float = 0.05
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.n_classes < 1 or self.n_features < 1:
+            raise ValueError("n_classes and n_features must be >= 1")
+        if not 1 <= self.min_samples <= self.max_samples:
+            raise ValueError(
+                f"need 1 <= min_samples <= max_samples; got "
+                f"[{self.min_samples}, {self.max_samples}]")
+
+
+# device-tier data streams, decorrelated from each other and from the
+# chaos fault streams under a shared seed
+_DEV_STREAM_LABEL = 0x1ABE1
+_DEV_STREAM_PULL = 0x9311
+_DEV_STREAM_WEIGHT = 0x5A3F
+
+
+def institution_class_mixes(partitioner: "DirichletPartitioner",
+                            n_classes: int) -> np.ndarray:
+    """(P, n_classes) row-stochastic class mix per institution, from the
+    same Dirichlet proportions `assign` deals by: normalizing the
+    (n_classes, P) draw's columns turns "institution p's share of class
+    c" into "class c's share of institution p's devices"."""
+    props = partitioner.proportions(n_classes).T    # (P, n_classes)
+    props = props + 1e-12                           # no all-zero rows
+    return (props / props.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def class_centroids(spec: DeviceShardSpec) -> np.ndarray:
+    """(n_classes, n_features) fixed unit-norm class centroids, each
+    class's local optimum in the centroid-pull device model."""
+    rng = np.random.default_rng((spec.seed, 0xC3))
+    c = rng.standard_normal((spec.n_classes, spec.n_features))
+    c = c / np.linalg.norm(c, axis=1, keepdims=True)
+    return c.astype(np.float32)
+
+
+def _per_device(host: np.ndarray):
+    """A lookup of `host` as a tensor on a given device, copied there once
+    (the first call on that device), never inside a chunk loop after."""
+    cache = {}
+
+    def on(device: torch.device) -> torch.Tensor:
+        key = str(device)
+        if key not in cache:
+            cache[key] = torch.from_numpy(host).to(device)
+        return cache[key]
+    return on
+
+
+def make_device_data_fn(spec: DeviceShardSpec, class_mixes: np.ndarray):
+    """Per-device shard generator for `core.device_tier`:
+
+        data_fn(sweep, inst, device_ids) -> ({"label", "pull"}, weights)
+
+    ``label`` int32, ``pull`` float32 and ``weights`` the uint32 sample
+    counts held in int64, each a pure counter-RNG function of its
+    arguments on `device_ids`' device: device d's shard does not depend on
+    which chunk evaluates it.  No host sync, so it runs under
+    `torch.func.vmap` over institutions."""
+    mixes = np.asarray(class_mixes, np.float32)
+    if mixes.ndim != 2 or mixes.shape[1] != spec.n_classes:
+        raise ValueError(f"class_mixes must be (P, {spec.n_classes}); got "
+                         f"{mixes.shape}")
+    cum = _per_device(np.cumsum(mixes, axis=1))     # (P, n_classes)
+    span = spec.max_samples - spec.min_samples + 1
+
+    def data_fn(sweep, inst, device_ids):
+        u_lab = uniform_traced(spec.seed, _DEV_STREAM_LABEL, sweep, inst,
+                               device_ids)
+        row = cum(u_lab.device)[inst]               # (n_classes,)
+        label = (u_lab[:, None] >= row[None, :-1]).sum(dim=1).to(
+            torch.int32)
+        pull = uniform_traced(spec.seed, _DEV_STREAM_PULL, sweep, inst,
+                              device_ids)
+        w = spec.min_samples + (
+            hash_u32_traced(spec.seed, _DEV_STREAM_WEIGHT, sweep, inst,
+                            device_ids) % span)
+        return {"label": label, "pull": pull}, w
+    return data_fn
+
+
+def make_centroid_pull_update(spec: DeviceShardSpec):
+    """Device-local update for the centroid-pull model: one SGD step on
+    1/2 ||w - c_label||^2 scaled by the device's pull jitter,
+
+        u = -pull_lr * (0.5 + pull) * (w - centroids[label])
+
+    for params ``{"w": (n_features,)}``, in the JAX package's float32
+    operation order.  Elementwise in w, so the update's bits do not depend
+    on the chunk layout."""
+    cent = _per_device(class_centroids(spec))
+    lr = float(np.float32(spec.pull_lr))
+
+    def update_fn(params, batch):
+        w = params["w"]
+        target = cent(w.device)[batch["label"]]
+        scale = lr * (0.5 + batch["pull"])
+        return {"w": -scale * (w - target)}
+    return update_fn
 
 
 class SyntheticGlendaDataset:

@@ -5,5 +5,6 @@ from repro_torch.serving.federated import (
     FederatedServer, FingerprintMismatchError, LedgerRootMismatchError,
     ModelStore, ModelUnavailableError, NoCommittedModelError,
     ServingVerificationError, TamperedLedgerError, VerifiedModel,
-    latest_committed, pull_from_snapshot, pull_latest_model,
+    latest_committed, plan_serving, pull_from_snapshot, pull_latest_model,
+    serving_workload,
 )

@@ -31,17 +31,22 @@ torn state (`SnapshotError`) as a rebooted coordinator does.
 + `ServingEngine` on the committed params; `refresh()` re-pulls
 mid-traffic and hot-swaps when a newer round committed.
 
-Not ported yet (ROADMAP queue A): `serving_workload` / `plan_serving`
-(they need ``continuum/placement.py`` and ``costmodel.py``).
+`serving_workload` and `plan_serving` price an engine tick in the
+continuum cost model and place serving replicas on cloud, fog and edge
+with the training placement's greedy assignment.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from repro_torch.checkpoint.snapshot import latest_verified_snapshot
 from repro_torch.configs.base import ModelConfig
+from repro_torch.continuum.costmodel import TRAIN_FLOP_FACTOR
+from repro_torch.continuum.placement import (
+    FederationWorkload, InstitutionPlacement, assign_institutions,
+)
 from repro_torch.core.merkle import verify_inclusion
 from repro_torch.core.registry import (
     ModelRegistry, Transaction, fingerprint_pytree,
@@ -55,7 +60,8 @@ __all__ = [
     "FederatedServer", "FingerprintMismatchError", "LedgerRootMismatchError",
     "ModelStore", "ModelUnavailableError", "NoCommittedModelError",
     "ServingVerificationError", "TamperedLedgerError", "VerifiedModel",
-    "latest_committed", "pull_from_snapshot", "pull_latest_model",
+    "latest_committed", "plan_serving", "pull_from_snapshot",
+    "pull_latest_model", "serving_workload",
 ]
 
 
@@ -286,3 +292,32 @@ class FederatedServer:
         self.model = model
         self.engine.swap_params(model.params, version=model.version)
         return model
+
+
+# ----------------------------------------------------------------------
+def serving_workload(cfg: ModelConfig, scfg: ServeConfig
+                     ) -> FederationWorkload:
+    """One engine TICK as a cost-model workload: `batch_size` tokens of
+    forward-only decode.  `round_time_s` prices training (forward and
+    backward) through `TRAIN_FLOP_FACTOR`, so the factor is divided back
+    out here; the exchange term then models the hot-swap model fetch, not
+    a gradient publish."""
+    flops_per_token = 2.0 * cfg.active_param_count()   # fwd matmuls: 2N/token
+    return FederationWorkload(
+        flops_per_sample=flops_per_token / TRAIN_FLOP_FACTOR,
+        samples_per_round=scfg.batch_size,
+        model_size_mb=4.0 * cfg.param_count() / 1e6,   # fp32 weight bytes
+    )
+
+
+def plan_serving(n_replicas: int, cfg: ModelConfig, scfg: ServeConfig,
+                 resources: Optional[Dict[str, Any]] = None
+                 ) -> List[InstitutionPlacement]:
+    """Place `n_replicas` serving replicas on the continuum with the greedy
+    marginal-cost assignment the training placement uses (the Fig 3/4
+    cost model): each replica lands on the cloud, fog or edge resource
+    that minimizes its modeled tick time given the load already placed
+    there.  `placement.tier_latency_summary(placements,
+    serving_workload(cfg, scfg))` rolls the result up per tier."""
+    return assign_institutions(n_replicas, serving_workload(cfg, scfg),
+                               resources)

@@ -907,3 +907,85 @@ def test_recurrence_wrappers_raise_instead_of_falling_back(cuda):
         ssm_kernel.ssm_scan_btd(a, a, B.cpu(), B, h0)
     with pytest.raises(ValueError, match="h0 must be"):
         ssm_kernel.ssm_scan_btd(a, a, B, B, h0[:, :16])
+
+
+# ----------------------------------------------------------------------
+# the device tier: plain PyTorch on the card, held against the CPU
+
+def _device_tier_fns(P=4):
+    from repro_torch.chaos import DeviceSchedule
+    from repro_torch.data import (
+        DeviceShardSpec, DirichletPartitioner, institution_class_mixes,
+        make_centroid_pull_update, make_device_data_fn,
+    )
+    spec = DeviceShardSpec(n_classes=4, n_features=6, min_samples=1,
+                           max_samples=9, seed=3)
+    mixes = institution_class_mixes(
+        DirichletPartitioner(alpha=0.5, n_institutions=P, seed=1), 4)
+    sched = DeviceSchedule(dropout_rate=0.25, straggler_rate=0.3,
+                           max_delay_s=2.0, deadline_s=1.0, seed=5)
+    return (make_device_data_fn(spec, mixes),
+            make_centroid_pull_update(spec), sched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 16, 64])
+def test_device_sweep_on_card_bitequal_to_cpu(cuda, chunk):
+    """Three chained sweeps (faults, staleness 1): the card's limbs, stats
+    and decoded means equal the CPU's bit for bit."""
+    from repro_torch.core.device_tier import (
+        DeviceTierConfig, device_sweep, zero_stale,
+    )
+    data_fn, update_fn, sched = _device_tier_fns()
+    cfg = DeviceTierConfig(n_devices=60, chunk_size=chunk, max_weight=16,
+                           faults=sched)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = {"w": torch.linspace(-1.0, 1.0, 6, device=dev)}
+        stale, chain = zero_stale(p), []
+        for s in range(3):
+            upd, stale, stats = device_sweep(
+                p, torch.tensor(s, dtype=torch.int32, device=dev),
+                torch.tensor(2, dtype=torch.int32, device=dev), stale, cfg,
+                data_fn, update_fn)
+            p = {"w": p["w"] + upd["w"]}
+            chain.append([x.cpu() for x in
+                          tree_flatten((upd, stale, stats))[0]])
+        outs[str(dev)] = chain
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            assert torch.equal(x.to(torch.float64), y.to(torch.float64))
+
+
+@pytest.mark.cuda
+def test_device_schedule_draw_on_card_equals_draw_host(cuda):
+    data_fn, _, sched = _device_tier_fns()
+    ids = np.arange(5000, dtype=np.int32)
+    for sweep, inst in [(0, 0), (3, 1), (17, 63)]:
+        on, late = sched.draw(torch.tensor(sweep, device=cuda), inst,
+                              torch.from_numpy(ids).to(cuda))
+        on_h, late_h = sched.draw_host(sweep, inst, ids.astype(np.uint32))
+        assert on.is_cuda
+        np.testing.assert_array_equal(on.cpu().numpy(), on_h)
+        np.testing.assert_array_equal(late.cpu().numpy(), late_h)
+
+
+@pytest.mark.cuda
+def test_hierarchical_device_merge_on_card_matches_cpu(cuda):
+    from repro_torch.core.merges import hierarchical_device_merge
+    g = np.random.default_rng(2)
+    x = g.standard_normal((8, 37, 5)).astype(np.float32)
+    w = g.integers(0, 5000, 8).astype(np.uint32)
+    mask = np.array([True, True, False, True, True, True, False, True])
+    for m in (None, mask):
+        outs = []
+        for dev in ("cpu", cuda):
+            outs.append(hierarchical_device_merge(
+                {"w": torch.from_numpy(x).to(dev)}, True,
+                weights=torch.from_numpy(w).to(dev),
+                mask=None if m is None else torch.from_numpy(m).to(dev)))
+        np.testing.assert_allclose(outs[1]["w"].cpu().numpy(),
+                                   outs[0]["w"].numpy(), atol=1e-6, rtol=0)
+        if m is not None:
+            assert torch.equal(outs[1]["w"][2].cpu(), torch.from_numpy(x[2]))

@@ -261,7 +261,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "new = {'repro_torch.checkpoint.store', 'repro_torch.checkpoint"
-        ".snapshot', 'repro_torch.chaos.recovery'}\n"
+        ".snapshot', 'repro_torch.chaos.recovery', 'repro_torch.core"
+        ".device_tier', 'repro_torch.continuum.placement', 'repro_torch"
+        ".continuum.costmodel'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

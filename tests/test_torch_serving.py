@@ -497,15 +497,32 @@ def test_prefill_and_tokenwise_admission_agree_and_slots_are_hermetic():
     assert reused == _gen_by_uid(fresh.run())[1]
 
 
-def test_subtree_merge_is_not_ported_and_raises():
-    """LMFederation merges bare param trees (merge_subtree=None); the
-    reference's default "params" subtree mode raises in the port."""
+def test_subtree_merge_matches_jax():
+    """LMFederation merges bare param trees (merge_subtree=None); under the
+    default "params" subtree mode a state dict merges its params alone,
+    as the JAX package's overlay does: equal merged params, the "opt"
+    leaf untouched, the same fingerprints registered."""
+    from repro.core.overlay import DecentralizedOverlay as JaxOverlay
+    from repro.core.overlay import OverlayConfig as JaxOverlayConfig
     from repro_torch.core.overlay import DecentralizedOverlay, OverlayConfig
+    g = np.random.default_rng(4)
+    state = {"params": {"w": g.standard_normal((2, 3)).astype(np.float32)},
+             "opt": g.standard_normal(2).astype(np.float32)}
     ov = DecentralizedOverlay(OverlayConfig(n_institutions=2, local_steps=1,
                                             merge="mean"))
-    stacked = {"params": {"w": torch.zeros((2, 3))}, "opt": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="'params' subtree"):
-        ov.merge_phase(stacked, np.zeros(2, np.uint32))
+    jov = JaxOverlay(JaxOverlayConfig(n_institutions=2, local_steps=1,
+                                      merge="mean"))
+    merged, tr = ov.merge_phase(params_from_jax(state),
+                                np.zeros(2, np.uint32))
+    jmerged, jtr = jov.merge_phase(jax.tree.map(jnp.asarray, state),
+                                   jax.random.PRNGKey(0))
+    assert tr.committed and jtr.committed
+    np.testing.assert_array_equal(merged["params"]["w"].numpy(),
+                                  np.asarray(jmerged["params"]["w"]))
+    np.testing.assert_array_equal(merged["opt"].numpy(), state["opt"])
+    np.testing.assert_array_equal(np.asarray(jmerged["opt"]), state["opt"])
+    assert [tx.model_fingerprint for tx in ov.registry.chain] == \
+        [tx.model_fingerprint for tx in jov.registry.chain]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, feds, store):
