@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the smoke run
     python3 chip_smoke.py --depth-probe   # the recurrent paths' depth cut
     python3 chip_smoke.py --turns PARENT  # two kernels vs a parent tree's
+    python3 chip_smoke.py --training      # the training path alone
 
 Builds the port's CUDA kernels from this checkout (each
 ``src/repro_torch/csrc/*.cu`` into its own library for sm_90a, one nvcc
@@ -58,6 +59,15 @@ after:
   eager loop; one hospital's sweep identical at chunks of 256 to 16,384;
   every round's device counts and weights equal to a numpy recount; the
   card equal to the CPU at P = 8 x D = 2,048;
+* training (``launch.train``'s overlay in parts): smollm-360m at its
+  published width and depth (32 layers, N = 361,821,120 a hospital),
+  P = 4, 4 sequences of 512 tokens a hospital, 2 local steps of AdamW
+  with remat and the fused cross-entropy, a warm-up and 3 rounds of
+  secure_mean in the float domain, the int domain and the float domain
+  with DP: the fused kernels at (4, 361,821,120), where only the params
+  federate and the moments stay with their hospital; one round with and
+  without remat from one state; reduced smollm-360m on the card and on
+  the CPU; rows 1-3 timed at (4, 361,821,120);
 * the legacy two-stage MPC round (``core.secure_agg
   .secure_rolling_update``: masks drawn on the card, shares materialized,
   one aggregate kernel) in both domains, at P = 10 on the CNN's N and at
@@ -3170,6 +3180,327 @@ def serving_reboot_path(dev, all_wrappers):
 # ----------------------------------------------------------------------
 # a redesigned kernel against its parent's, in turns
 
+# ----------------------------------------------------------------------
+# training (slice 14): the train launcher's overlay at smollm-360m width
+
+TRAIN_ARCH = "smollm-360m"
+TRAIN_P, TRAIN_LOCAL_STEPS = 4, 2
+TRAIN_SEQ, TRAIN_BATCH = 512, 16
+TRAIN_ROUNDS = 3                 # timed rounds after a warm-up, each mode
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-4, 5, 50
+TRAIN_N = 361_821_120            # smollm-360m's parameters (tied head)
+ROWS_EQUAL_ATOL = 1e-6           # a committed merge: the 4 rows agree
+TRAIN_PARITY = dict(seq_len=32, global_batch=8, rounds=2)
+REMAT_GATE_LAYERS = 8
+# card vs CPU in bf16 compute: AdamW's m within this share of each leaf's
+# largest |m| (PERF.md section 6 gives the readings behind it)
+M_REL_CARD_CPU = 0.04
+
+
+def train_config(remat=True):
+    """The launcher's training config at the path's settings: AdamW lr
+    3e-4, 5 warm-up steps, remat; ``impl="auto"``, which trains through
+    the plain paths; the fused cross-entropy on by the reference's
+    threshold (vocab 49,152 >= 16,384)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig
+    return TrainConfig(optimizer=AdamWConfig(learning_rate=TRAIN_LR),
+                       total_steps=TRAIN_TOTAL, warmup_steps=TRAIN_WARMUP,
+                       remat=remat)
+
+
+def training_overlay(dev, mode_kwargs, remat=True, data=None, cfg=None,
+                     params=None):
+    """The launcher's overlay parts (`launch.train.setup_overlay`) at the
+    path's settings: (cfg, state, local step, overlay, dataset), so that
+    the path can time and profile each round.  `params`: the starting
+    weights (by default the launcher's, drawn on `dev`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import setup_overlay
+    cfg = cfg or get_config(TRAIN_ARCH)
+    data = data or DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    return (cfg,) + setup_overlay(
+        cfg, train_config(remat), data, n_inst=TRAIN_P,
+        local_steps=TRAIN_LOCAL_STEPS, merge="secure_mean", alpha=1.0,
+        device=dev, params=params, **mode_kwargs)
+
+
+def training_round(state, local_step, overlay, ds, r):
+    """Round r of the launcher's loop (`launch.train.overlay_round`):
+    (state, mean loss, transcript)."""
+    from repro_torch.launch.train import overlay_round
+    state, metrics, tr = overlay_round(overlay, ds, state, local_step, r)
+    return state, metrics["loss"].float().mean(), tr
+
+
+def rows_spread(tree):
+    """The largest distance of any institution's leaf from row 0's."""
+    from repro_torch.pytree import tree_flatten
+    return max(float((x - x[:1]).abs().max()) for x in tree_flatten(tree)[0])
+
+
+def leaf_rel_err(got, want):
+    """The largest |got - want| of a leaf over that leaf's largest |want|,
+    the largest over the leaves: an error that scales with the values
+    held, so a lost or wrong gradient reads near 1."""
+    from repro_torch.pytree import tree_flatten
+    return max(float((a.cpu() - b.cpu()).abs().max()
+                     / b.cpu().abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]))
+
+
+def training_card_vs_cpu(dev):
+    """Reduced smollm-360m, P = 4, seq 32, 2 rounds of secure_mean float
+    and int through the launcher's parts on the card and on the CPU, from
+    the same weights, drawn on the CPU: equal commits and survivors, and
+    after each round AdamW's first moments (the steps' clipped gradients,
+    each hospital's own) within M_REL_CARD_CPU of each leaf's largest.
+    The params are printed, not held: AdamW moves a param by about lr a
+    step whatever its gradient's size, so they cannot tell a wrong
+    gradient from a right one."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import initial_params
+    from repro_torch.pytree import tree_flatten, tree_map
+    cfg = reduced(get_config(TRAIN_ARCH))
+    host = initial_params(cfg, torch.device("cpu"))
+    data = DataConfig(seq_len=TRAIN_PARITY["seq_len"],
+                      global_batch=TRAIN_PARITY["global_batch"])
+    for domain in ("float", "int"):
+        out = {}
+        for d in ("cpu", dev):
+            _, state, step, ov, ds = training_overlay(
+                torch.device(d), {"secure_domain": domain}, data=data,
+                cfg=cfg, params=tree_map(lambda x: x.to(d), host))
+            trs, moments = [], []
+            for r in range(TRAIN_PARITY["rounds"]):
+                state, _, tr = training_round(state, step, ov, ds, r)
+                trs.append((tr.committed, tr.survivors))
+                moments.append(tree_map(lambda x: x.cpu(), state["opt"]))
+            out[str(d)] = (trs, moments, [x.cpu() for x in
+                                          tree_flatten(state["params"])[0]])
+        cpu, card = out["cpu"], out[str(dev)]
+        assert cpu[0] == card[0], (cpu[0], card[0])
+        m_err = [leaf_rel_err(a["m"], b["m"]) for a, b in zip(card[1], cpu[1])]
+        v_err = [leaf_rel_err(a["v"], b["v"]) for a, b in zip(card[1], cpu[1])]
+        assert max(m_err) <= M_REL_CARD_CPU, (domain, m_err)
+        diff = max(float((a - b).abs().max()) for a, b in zip(card[2], cpu[2]))
+        print(f"  training card == CPU ({domain}): reduced {TRAIN_ARCH}, "
+              f"P = 4, seq {data.seq_len}, {TRAIN_PARITY['rounds']} rounds: "
+              f"commits and survivors equal; AdamW m within "
+              f"{', '.join(f'{e:.4g}' for e in m_err)} of each leaf's "
+              f"largest after each round (limit {M_REL_CARD_CPU}), v within "
+              f"{', '.join(f'{e:.4g}' for e in v_err)}; params apart by "
+              f"up to {diff:.3g} (not held)")
+
+
+def training_remat_gate(dev):
+    """One float round of the path from one state, with remat and without,
+    at smollm-360m's published width cut to REMAT_GATE_LAYERS layers
+    (without remat a layer keeps ~3 GB of plain attention's fp32 scores
+    and softmax for the backward pass: 32 layers would not fit the card):
+    params and both AdamW moments bit-equal (under the overlay's
+    ``vmap(grad)`` the recompute runs the same ops in the same order);
+    both peaks printed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.pytree import tree_flatten, tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=REMAT_GATE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, peaks, losses = {}, {}, {}
+    for remat in (True, False):
+        _, state, step, ov, ds = training_overlay(
+            dev, {"secure_domain": "float"}, remat=remat, cfg=cfg)
+        ov._flush = lambda rounds: None       # the ledger is not gated here
+        torch.cuda.reset_peak_memory_stats()
+        state, loss, _ = training_round(state, step, ov, ds, 0)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses[remat] = float(loss)
+        rows[remat] = tree_map(lambda x: x.cpu(), {     # off the card
+            "params": tree_map(lambda x: x[0], state["params"]),
+            "m": state["opt"]["m"], "v": state["opt"]["v"]})
+        del state, step, ov
+        gc.collect()
+        torch.cuda.empty_cache()
+    unequal = {key: sum(not torch.equal(a, b) for a, b in zip(
+        tree_flatten(rows[True][key])[0], tree_flatten(rows[False][key])[0]))
+        for key in rows[True]}
+    m_max = max(float(x.abs().max())
+                for x in tree_flatten(rows[True]["m"])[0])
+    assert m_max > 0 and not any(unequal.values()), (unequal, m_max)
+    print(f"  remat gate ({TRAIN_ARCH} cut to {REMAT_GATE_LAYERS} "
+          f"layers): one round from one state, params, AdamW m (largest "
+          f"{m_max:.3g}) and v with remat and without equal bit for bit; "
+          f"loss {losses[True]:.4f} / {losses[False]:.4f}; peak "
+          f"{peaks[True]:.2f} GiB with remat, {peaks[False]:.2f} GiB "
+          f"without")
+
+
+def training_path(dev, kernels, fed_kwargs, totals):
+    """`launch.train`'s overlay at smollm-360m's published width and depth
+    (32 layers, d 960, 15 heads of 64, vocab 49,152: N = 361,821,120 a
+    hospital), P = 4, ``DataConfig(seq_len=512, global_batch=16)``, 2
+    local steps, `train_config` (remat, the fused cross-entropy), merged
+    by secure_mean in the float domain, the int domain and the float
+    domain with DP (clip 0.5, sigma 1.0): a warm-up round and
+    TRAIN_ROUNDS timed rounds each, counts from 0 after the warm-up, the
+    last timed round traced on the card (device busy, idle share).
+    Gates: every loss finite; every committed round leaves the 4 rows'
+    params within ROWS_EQUAL_ATOL of each other while the AdamW moments
+    stay each hospital's own; the ledger verifies; the mode's kernel
+    launches once a round.  Then the remat and card-vs-CPU gates."""
+    from repro_torch.pytree import tree_flatten
+    expect = {"float": {"masked_rolling_update": TRAIN_ROUNDS},
+              "int": {"masked_field_wsum": TRAIN_ROUNDS},
+              "dp": {"masked_rolling_update": TRAIN_ROUNDS,
+                     "clip_noise": TRAIN_ROUNDS}}
+    for mode in MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() < 2 ** 30, "memory left over"
+        torch.cuda.reset_peak_memory_stats()
+        cfg, state, step, ov, ds = training_overlay(dev, fed_kwargs(mode))
+        n = sum(x[0].numel() for x in tree_flatten(state["params"])[0])
+        assert n == TRAIN_N, n
+        flush = Stopwatch(ov._flush)
+        ov._flush = flush
+        state, loss, tr = training_round(state, step, ov, ds, 0)
+        losses, ms = [float(loss)], []
+        for k in kernels.values():
+            k["wrapper"].launches = k["wrapper"].launches_wide = 0
+        for r in range(1, 1 + TRAIN_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if r == TRAIN_ROUNDS:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    state, loss, tr = training_round(state, step, ov, ds,
+                                                     r)
+                    torch.cuda.synchronize()
+                per_kernel = {}
+                for e in prof.events():
+                    if str(e.device_type).endswith("CUDA"):
+                        t_n = per_kernel.setdefault(e.name, [0.0, 0])
+                        t_n[0] += e.time_range.elapsed_us() / 1e3
+                        t_n[1] += 1
+                del prof
+            else:
+                state, loss, tr = training_round(state, step, ov, ds, r)
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            assert tr.committed, (mode, r)
+            spread = rows_spread(state["params"])
+            assert spread <= ROWS_EQUAL_ATOL, (mode, r, spread)
+        counts = {n_: k["wrapper"].launches for n_, k in kernels.items()}
+        wide = sum(k["wrapper"].launches_wide for k in kernels.values())
+        for n_ in counts:
+            totals[n_] += counts[n_]
+        want = dict.fromkeys(kernels, 0)
+        want.update(expect[mode])
+        assert counts == want and wide == 0, (mode, counts)
+        assert all(math.isfinite(v) for v in losses), (mode, losses)
+        assert all(bool(torch.isfinite(x).all())
+                   for x in tree_flatten(state["params"])[0]), mode
+        # the moments are each hospital's own: the merge never saw them
+        m_spread = rows_spread(state["opt"]["m"])
+        assert m_spread > 0, mode
+        assert state["opt"]["count"].tolist() == \
+            [(1 + TRAIN_ROUNDS) * TRAIN_LOCAL_STEPS] * TRAIN_P
+        assert ov.registry.verify_chain() and ov.registry.verify_log()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = sum(t for t, _ in per_kernel.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"training path {TRAIN_ARCH} {mode}: {cfg.n_layers} layers, "
+              f"{n:,} parameters a hospital, P = {TRAIN_P}, seq "
+              f"{TRAIN_SEQ}, batch {TRAIN_BATCH}, {TRAIN_LOCAL_STEPS} local "
+              f"steps | {np.mean(ms[:-1]):.2f} ms/round "
+              f"({', '.join(f'{v:.1f}' for v in ms[:-1])}; the DLT flush "
+              f"{np.mean(flush.calls[1:]) * 1e3:.1f} ms of a round: "
+              f"{TRAIN_P + 1} fingerprints of {n * 4 / 1e9:.2f} GB on the "
+              f"host) | the profiled round {ms[-1]:.1f} ms, device busy "
+              f"{busy:.1f} ms (idle {1 - busy / ms[-1]:.1%}) | peak "
+              f"{peak:.2f} GiB | loss a round "
+              f"{[round(v, 4) for v in losses]} | rows within {spread:.2g}, "
+              f"moments apart by up to {m_spread:.3g} | launches {counts}")
+        print(f"  the profiled round's "
+              f"{sum(c for _, c in per_kernel.values())} device activities;"
+              f" top:" + "; ".join(f" {k[:48]} {t:.1f} ms/{c}"
+                                   for k, (t, c) in top))
+        del state, step, ov, flush, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_remat_gate(dev)
+    training_card_vs_cpu(dev)
+
+
+def time_secure_agg_train(dev, kernels):
+    """Rows 1-3 once each at the training path's (4, TRAIN_N), all rows
+    alive: held against their plain versions on the same rows by
+    `check_secure_agg`'s standards (the share-sum equal, the float round
+    within atol = P * 1e-6, the DP noise within rtol = 1e-5, atol = 1e-6;
+    the largest error kept as ``train_max_abs_err``), then timed beside
+    their bounds (`bound`, `op_counts`) and a same-bytes floor (a copy_ of
+    the (4, N) f32 rows; the int kernel's floor is the same copy, as its
+    bytes are one read of the rows)."""
+    from repro_torch.kernels.dp import kernel as dp_kernel
+    from repro_torch.kernels.dp import ref as dp_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(dev).manual_seed(11)
+    rows = torch.randn((TRAIN_P, TRAIN_N), generator=g, device=dev)
+    sink = torch.empty_like(rows)
+    copy_ms = kernel_median_ms(lambda i: sink.copy_(rows), 5,
+                               "Memcpy DtoD")
+    del sink
+    norms = dp_ref._row_norms(rows)
+    out = {}
+    for name, k in kernels.items():
+        got, want = k["run"](rows, None), k["plain"](rows, None)
+        torch.cuda.synchronize()
+        err = 0.0
+        for p in range(TRAIN_P):           # a row at a time: 1.45 GB each
+            if name == "masked_field_wsum":
+                assert torch.equal(got[p], want[p]), (name, p)
+                continue
+            torch.testing.assert_close(
+                got[p], want[p], equal_nan=True, **(
+                    dict(atol=TRAIN_P * 1e-6, rtol=0)
+                    if name == "masked_rolling_update"
+                    else dict(atol=1e-6, rtol=1e-5)))
+            err = max(err, float((got[p] - want[p]).abs().max()))
+        del got, want
+        torch.cuda.empty_cache()
+        if name == "clip_noise":
+            run = lambda: dp_kernel.clip_noise_flat(   # noqa: E731
+                rows, norms, 7, 0.5, 1.0, None)
+        else:
+            run = lambda k=k: k["run"](rows, None)     # noqa: E731
+        k_ms = kernel_median_ms(lambda i: run(), 5, f"{name}_kernel")
+        bytes_ms, ops_ms = bound(name, TRAIN_P, TRAIN_N, TRAIN_P)
+        b_ms = max(bytes_ms, ops_ms)
+        out[name] = {"train_shape": [TRAIN_P, TRAIN_N], "train_ms": k_ms,
+                     "train_max_abs_err": err,
+                     "train_bound_ms": b_ms,
+                     "train_bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "train_copy_ms": copy_ms}
+        print(f"time {name} at ({TRAIN_P}, {TRAIN_N:,}): kernel == plain "
+              f"(max |err| {err:.3g}) | kernel median "
+              f"{k_ms:.3f} ms | bound {b_ms:.3f} ms by "
+              f"{out[name]['train_bound_by']} (bytes {bytes_ms:.3f}, "
+              f"operations {ops_ms:.3f}); kernel at {b_ms / k_ms:.1%} of "
+              f"bound | same-bytes copy {copy_ms:.3f} ms")
+    del rows, norms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def call_ms(fn, iters):
     """Median device ms of one fn(i) call, all of its kernels: each
     kernel's median times its launches a call, summed, over LEAD_IN +
@@ -3296,6 +3627,19 @@ def main() -> int:
 
     # ---- each kernel against its plain version -----------------------
     kernels = secure_agg_kernels(dev)
+
+    def fed_kwargs(mode):
+        return dict(secure_domain="int" if mode == "int" else "float",
+                    dp=DPConfig(clip_norm=0.5, noise_multiplier=1.0)
+                    if mode == "dp" else None)
+    if "--training" in args:
+        totals = {name: 0 for name in kernels}
+        training_path(dev, kernels, fed_kwargs, totals)
+        time_secure_agg_train(dev, kernels)
+        print(f"training path alone took "
+              f"{time.perf_counter() - t_start:.1f} s after start-up")
+        return 0
+
     check_secure_agg(kernels, dev)
     check_secure_agg_wide(kernels, dev)
     legacy = legacy_kernels()
@@ -3305,10 +3649,6 @@ def main() -> int:
     ssm_err = check_ssm(dev)
 
     # ---- the card against the CPU, small -----------------------------
-    def fed_kwargs(mode):
-        return dict(secure_domain="int" if mode == "int" else "float",
-                    dp=DPConfig(clip_norm=0.5, noise_multiplier=1.0)
-                    if mode == "dp" else None)
     cnn_card_vs_cpu(dev, fed_kwargs)
     fault_card_vs_cpu(dev)
     merge_card_vs_cpu(dev)
@@ -3332,6 +3672,7 @@ def main() -> int:
     fleet_recovery_path(dev, kernels, fed_kwargs, totals_wide)
     placement_path(dev, kernels, totals)
     device_tier_path(dev, kernels)
+    training_path(dev, kernels, fed_kwargs, totals)
     for name, n in list(totals.items()) + [
             (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"
@@ -3343,6 +3684,10 @@ def main() -> int:
 
     # ---- timing at the main paths' shapes ----------------------------
     rows = time_secure_agg(dev, kernels, totals)
+    for row, (name, extra) in zip(rows, time_secure_agg_train(
+            dev, kernels).items()):
+        assert row["name"] == name
+        row.update(extra)
     rows += time_secure_agg_wide(dev, kernels, totals_wide)
     rows += time_legacy(dev, legacy, legacy_launches)
     flash = time_flash(dev)

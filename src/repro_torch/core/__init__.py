@@ -10,6 +10,7 @@
   consensus.py   Paxos 3-phase-commit simulator + ConsensusGate
   secure_agg.py  additive-mask MPC aggregation (uses kernels/secure_agg)
   registry.py    permissioned-DLT model registry over merkle.py
+  scheduler.py   continuum placement + the accuracy<->time knob
 """
 from repro_torch.core.consensus import (
     ConsensusGate, PaxosSimulator, ProtocolParams, measure,
@@ -29,4 +30,7 @@ from repro_torch.core.overlay import (
 )
 from repro_torch.core.registry import (
     ModelRegistry, RoundRecord, fingerprint_pytree,
+)
+from repro_torch.core.scheduler import (
+    ContinuumScheduler, accuracy_to_width, time_fraction_for_accuracy,
 )

@@ -1,13 +1,16 @@
-"""Data pipelines: synthetic GLENDA-like frames, hospital splits and the
-device tier's per-device shards."""
+"""Data pipelines: synthetic GLENDA-like frames, hospital splits, the
+language models' synthetic token corpus and the device tier's per-device
+shards."""
 from repro_torch.data.pipeline import (
-    DeviceShardSpec, DirichletPartitioner, SyntheticGlendaDataset,
-    class_centroids, institution_class_mixes, make_centroid_pull_update,
+    DataConfig, DeviceShardSpec, DirichletPartitioner, SyntheticGlendaDataset,
+    SyntheticTokenDataset, class_centroids, institution_batches,
+    institution_class_mixes, make_batch_specs, make_centroid_pull_update,
     make_device_data_fn,
 )
 
 __all__ = [
-    "DeviceShardSpec", "DirichletPartitioner", "SyntheticGlendaDataset",
-    "class_centroids", "institution_class_mixes",
+    "DataConfig", "DeviceShardSpec", "DirichletPartitioner",
+    "SyntheticGlendaDataset", "SyntheticTokenDataset", "class_centroids",
+    "institution_batches", "institution_class_mixes", "make_batch_specs",
     "make_centroid_pull_update", "make_device_data_fn",
 ]

@@ -1,11 +1,17 @@
 """Synthetic GLENDA-like frames for the paper's CNN, split across hospitals,
-and the device tier's per-device shards.
+the language models' synthetic token corpus, and the device tier's
+per-device shards.
 
 Numpy copies of the JAX package's ``DirichletPartitioner`` and
 ``SyntheticGlendaDataset``: both are pure functions of their numpy seeds,
 so the port's batches are byte-identical to the JAX package's.  Data is
 partitioned per institution and never mixes (paper Gap 1); each
 institution's frames carry a camera bias (non-IID).
+
+The token corpus (`SyntheticTokenDataset`, `institution_batches`) is the
+JAX package's numpy generator verbatim, so its tokens are bit-equal to
+the reference's; `make_batch_specs` gives a batch's shapes and torch
+dtypes with the logical axes as plain tuples.
 
 The device tier's shards (`DeviceShardSpec`, `make_device_data_fn`) are
 counter-PRG functions of (seed, sweep, institution, device) drawn on the
@@ -14,12 +20,111 @@ device, bit-equal to the JAX package's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.chaos.rng import hash_u32_traced, uniform_traced
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seq_len: int = 256
+    global_batch: int = 8
+    seed: int = 0
+    order: int = 3          # markov order of the synthetic structure
+
+
+class SyntheticTokenDataset:
+    """Deterministic pseudo-corpus for the language models: zipf-ish
+    marginals plus a learnable cycle on every other token, so the LM loss
+    falls.  Modality-aware: audio batches carry frame embeddings and
+    per-frame labels, VLM batches patch embeddings before the text."""
+
+    def __init__(self, cfg: ModelConfig, data: DataConfig):
+        self.cfg = cfg
+        self.data = data
+        rng = np.random.default_rng(data.seed)
+        self.perm = rng.permutation(cfg.vocab_size)
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        """The batch of `step`, a pure function of (seed, step)."""
+        d = self.data
+        rng = np.random.default_rng((self.data.seed, step))
+        V = self.cfg.vocab_size
+        base = rng.zipf(1.3, size=(d.global_batch, d.seq_len)).astype(np.int64)
+        tokens = (base % (V - 2)) + 1
+        # every other token continues a cycle: predictable, learnable
+        cyc = np.cumsum(tokens, axis=1) % (V - 2) + 1
+        mask = (np.arange(d.seq_len) % 2).astype(bool)
+        tokens[:, mask] = cyc[:, mask]
+        tokens = self.perm[tokens]
+        batch = {"tokens": tokens.astype(np.int32)}
+        if self.cfg.modality == "audio":
+            emb = rng.standard_normal(
+                (d.global_batch, d.seq_len, self.cfg.d_model)).astype(np.float32)
+            batch = {"frame_embeddings": emb,
+                     "labels": (tokens % self.cfg.vocab_size).astype(np.int32)}
+        elif self.cfg.modality == "vlm":
+            P = min(self.cfg.n_image_patches, d.seq_len // 2)
+            emb = rng.standard_normal(
+                (d.global_batch, P, self.cfg.d_model)).astype(np.float32)
+            batch = {"tokens": tokens[:, :d.seq_len - P].astype(np.int32),
+                     "patch_embeddings": emb}
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
+
+
+def make_batch_specs(cfg: ModelConfig, seq_len: int, global_batch: int,
+                     kind: str):
+    """({key: (shape, torch dtype)}, {key: logical axes}) of one input
+    batch of `kind` ("train", "prefill" or "decode")."""
+    if kind == "decode":
+        specs = {"tokens": ((global_batch,), torch.int32),
+                 "pos": ((global_batch,), torch.int32)}
+        axes = {"tokens": ("batch",), "pos": ("batch",)}
+        return specs, axes
+    specs, axes = {}, {}
+    if cfg.modality == "audio":
+        specs["frame_embeddings"] = ((global_batch, seq_len, cfg.d_model),
+                                     torch.bfloat16)
+        axes["frame_embeddings"] = ("batch", "seq", "embed")
+        specs["labels"] = ((global_batch, seq_len), torch.int32)
+        axes["labels"] = ("batch", "seq")
+    elif cfg.modality == "vlm":
+        P = cfg.n_image_patches
+        specs["tokens"] = ((global_batch, seq_len - P), torch.int32)
+        axes["tokens"] = ("batch", "seq")
+        specs["patch_embeddings"] = ((global_batch, P, cfg.d_model),
+                                     torch.bfloat16)
+        axes["patch_embeddings"] = ("batch", "seq", "embed")
+    else:
+        specs["tokens"] = ((global_batch, seq_len), torch.int32)
+        axes["tokens"] = ("batch", "seq")
+    return specs, axes
+
+
+def institution_batches(dataset: SyntheticTokenDataset, n_institutions: int,
+                        local_steps: int, round_index: int) -> np.ndarray:
+    """(local_steps, P, B_local, S) int32 token stacks of one round:
+    institution i's rows of each step's global batch, so institutions'
+    data stays disjoint."""
+    d = dataset.data
+    assert d.global_batch % n_institutions == 0
+    bl = d.global_batch // n_institutions
+    out = []
+    for s in range(local_steps):
+        step_id = round_index * local_steps + s
+        full = dataset.batch(step_id)["tokens"]
+        out.append(full.reshape(n_institutions, bl, d.seq_len))
+    return np.stack(out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -220,6 +220,36 @@ FUSED_MAX_ROWS = 16
 ANY_P = 2 ** 31 - 1
 
 
+def _grad_tracked(t: torch.Tensor) -> bool:
+    """Whether autograd, or a ``torch.func`` grad transform at any level
+    under a ``vmap``, would track `t`: each functorch wrapper is looked
+    through down to the plain tensor."""
+    while True:
+        if torch.is_grad_enabled() and t.requires_grad:
+            return True
+        if not torch._C._functorch.is_functorch_wrapped_tensor(t):
+            return False
+        t = torch._C._functorch.get_unwrapped(t)
+
+
+def refuse_transforms(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise before a forward-only kernel launches on inputs it cannot
+    serve: a launch writes its output through raw pointers, so that output
+    would be cut off from autograd (the gradient would silently skip the
+    kernel), and a ``torch.func`` wrapper has no storage to point at."""
+    if any(_grad_tracked(t) for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: no backward kernel exists, and a gradient cannot "
+            f"flow through this launch; differentiate through the plain "
+            f"path instead (impl=\"ref\", or the trainer's impl=\"auto\", "
+            f"which picks the plain paths), or run without grad")
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+           for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no torch.func batching rule; call "
+            f"it outside torch.func.vmap, or use impl=\"ref\"")
+
+
 def check_rows(x: torch.Tensor, what: str = "updates",
                dtype: torch.dtype = torch.float32):
     """(P, N) contiguous CUDA rows of `dtype` with 1 <= P < 2^31."""

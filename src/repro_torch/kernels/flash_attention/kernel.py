@@ -2,7 +2,10 @@
 (``csrc/flash_attention.cu``).
 
 CPU tensors get the plain PyTorch version (`ref.attention_reference`);
-CUDA tensors launch the kernel or raise: there is no fallback.
+CUDA tensors launch the kernel or raise: there is no fallback.  The
+kernel has no backward: a CUDA call whose output autograd or a
+``torch.func`` grad transform would track raises
+(`_cuda.refuse_transforms`); train through ``impl="ref"``.
 ``flash_attention_bhsd.launches`` counts the launches.
 """
 from __future__ import annotations
@@ -67,6 +70,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return o
         out.copy_(o)
         return out
+    _cuda.refuse_transforms("flash_attention_bhsd", q, k, v)
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     _check(q, k, v, out)

@@ -1,8 +1,10 @@
 """Wrapper of the hand-written Hopper WKV6 kernel (``csrc/wkv6.cu``).
 
 CPU tensors get the plain PyTorch version (`ref.wkv6_reference`); CUDA
-tensors launch the kernel or raise: there is no fallback.
-``wkv6_bthd.launches`` counts the launches.
+tensors launch the kernel or raise: there is no fallback.  The kernel
+has no backward: a CUDA call whose output autograd or a ``torch.func``
+grad transform would track raises (`_cuda.refuse_transforms`); train
+through ``impl="ref"``.  ``wkv6_bthd.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ def wkv6_bthd(r, k, v, w, u, s0, *, block_t: int = 128):
     ``repro/kernels/rwkv6_scan/kernel.py:wkv6_bthd``."""
     if r.device.type == "cpu":
         return _ref.wkv6_reference(r, k, v, w, u, s0)
+    _cuda.refuse_transforms("wkv6_bthd", r, k, v, w, u, s0)
     _check(r, k, v, w, u, s0)
     B, T, H, hd = r.shape
     y = torch.empty((B, T, H, hd), dtype=r.dtype, device=r.device)

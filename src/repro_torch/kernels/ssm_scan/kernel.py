@@ -2,7 +2,10 @@
 (``csrc/ssm_scan.cu``).
 
 CPU tensors get the plain PyTorch version (`ref.ssm_scan_reference`);
-CUDA tensors launch the kernel or raise: there is no fallback.
+CUDA tensors launch the kernel or raise: there is no fallback.  The
+kernel has no backward: a CUDA call whose output autograd or a
+``torch.func`` grad transform would track raises
+(`_cuda.refuse_transforms`); train through ``impl="ref"``.
 ``ssm_scan_btd.launches`` counts the calls that launch it.  A call with
 T <= DECODE_T launches the decode kernel; a longer one clears the
 look-back's flags in a workspace the C source sizes (one
@@ -72,6 +75,7 @@ def ssm_scan_btd(a, bx, B, C, h0, *, block_t: int = 256,
     ``repro/kernels/ssm_scan/kernel.py:ssm_scan_btd``."""
     if a.device.type == "cpu":
         return _ref.ssm_scan_reference(a, bx, B, C, h0)
+    _cuda.refuse_transforms("ssm_scan_btd", a, bx, B, C, h0)
     _check(a, bx, B, C, h0)
     Bz, T, di = a.shape
     N = B.shape[2]

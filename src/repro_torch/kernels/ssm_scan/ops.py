@@ -1,16 +1,17 @@
 """Public selective-scan op: backend dispatch.
 
 ``impl``: "pallas" and "fused" name the hand-written kernel (its plain
-version for CPU tensors), "chunked" and "ref" the plain versions, "auto"
-the kernel for CUDA tensors and "chunked" on the CPU, as the reference
-picks off the TPU.  The reference fits its tiles to divisors of T and
-di; the CUDA kernel takes any T and di, so nothing is fitted here."""
+version for CPU tensors), "chunked" and "ref" the plain versions,
+"plain" "chunked" on any device (what the reference picks off the TPU),
+"auto" the kernel for CUDA tensors and "chunked" on the CPU.  The
+reference fits its tiles to divisors of T and di; the CUDA kernel takes
+any T and di, so nothing is fitted here."""
 from __future__ import annotations
 
 from repro_torch.kernels.ssm_scan import kernel as _k
 from repro_torch.kernels.ssm_scan import ref as _ref
 
-IMPLS = ("auto", "pallas", "fused", "chunked", "ref")
+IMPLS = ("auto", "plain", "pallas", "fused", "chunked", "ref")
 
 
 def ssm_scan(a, bx, B, C, h0, *, impl: str = "auto", block_t: int = 256,
@@ -23,7 +24,7 @@ def ssm_scan(a, bx, B, C, h0, *, impl: str = "auto", block_t: int = 256,
                          f"{IMPLS}")
     if impl == "auto":
         impl = "pallas" if a.device.type == "cuda" else "chunked"
-    if impl == "chunked":
+    if impl in ("chunked", "plain"):
         return _ref.ssm_scan_chunked(a, bx, B, C, h0)
     if impl == "ref":
         return _ref.ssm_scan_reference(a, bx, B, C, h0)

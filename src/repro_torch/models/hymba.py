@@ -18,9 +18,10 @@ the CPU their plain versions.  The decode step asks the scan for
 the CPU.  The reference's decode step passes ``impl="ref"`` only because
 a one-token Pallas grid is wasteful on a TPU; both compute the same
 function, and the card's serving path runs no plain recurrence.  Decode
-attention is plain tensor code, as in the reference.  Training asks for
-``impl="ref"``, as the reference does, because neither kernel has a
-backward pass yet.
+attention is plain tensor code, as in the reference.  Training takes
+the plain paths (``impl="ref"``, or the trainer's ``"auto"``, which
+resolves to ``"plain"``), as the reference does: neither kernel has a
+backward pass, and a gradient through one raises.
 
 The meta tokens exist only on the prefill path: prefill and token-wise
 ingestion of the same prompt differ by design.
@@ -163,15 +164,17 @@ def _embed_with_meta(cfg: ModelConfig, params: Params, tokens):
 def forward_features(cfg: ModelConfig, params: Params, batch, *,
                      impl: str = "auto", remat: bool = False):
     """Backbone output before the LM head, meta positions dropped:
-    (features (B,T,d), aux, head (d,V)).  ``remat`` belongs to the
-    training slice and is not ported yet."""
-    if remat:
-        raise NotImplementedError("remat is not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 29)")
+    (features (B,T,d), aux, head (d,V)).  ``remat`` recomputes each layer
+    on the backward pass (`layers.recompute`), as the reference's
+    ``jax.checkpoint``."""
     x, positions, h0 = _embed_with_meta(cfg, params, batch["tokens"])
-    for i in range(cfg.n_layers):
-        p = L.layer_params(params["block"], i)
-        x, _ = _hybrid_block(cfg, p, x, positions, h0, impl)
+
+    def body(x, p, positions, h0):
+        return _hybrid_block(cfg, p, x, positions, h0, impl)[0]
+
+    for p in L.unstack_layers(params["block"]):
+        x = (L.recompute(body, x, p, positions, h0) if remat
+             else body(x, p, positions, h0))
     x = x[:, N_META_TOKENS:]                      # drop meta positions
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, L.zero_aux(x.device), params["lm_head"]
@@ -196,8 +199,7 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_seq_len: int,
     take = min(W, S)
     pos_tail = torch.arange(S - take, S, dtype=torch.int32, device=x.device)
     slots = (pos_tail % W).long()
-    for i in range(cfg.n_layers):
-        p = L.layer_params(params["block"], i)
+    for i, p in enumerate(L.unstack_layers(params["block"])):
         x, h_last, (k, v) = _hybrid_block(cfg, p, x, positions, h0, impl,
                                           collect_kv=True)
         state["k"][i][:, slots] = k[:, S - take:]
@@ -240,8 +242,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     abs_pos = pos + N_META_TOKENS
     positions = abs_pos[:, None]
     ks, vs, ps, ssms = [], [], [], []
-    for i in range(cfg.n_layers):
-        p = L.layer_params(params["block"], i)
+    for i, p in enumerate(L.unstack_layers(params["block"])):
         h = L.rms_norm(x, p["in_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, p, h, positions)
         kc, vc, pc = L.cache_update(state["k"][i], state["v"][i],

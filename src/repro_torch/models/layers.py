@@ -69,15 +69,80 @@ def param_count(specs) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_flatten(specs)[0])
 
 
-def layer_params(block, i: int):
-    """Layer i's weights out of a tree stacked on a leading layers dim."""
-    return {name: w[i] for name, w in block.items()}
+def unstack_layers(block):
+    """Every layer's weights out of a tree stacked on a leading layers
+    dim, by one ``unbind`` a leaf: under autograd its backward stacks the
+    layers' gradients once, where indexing one layer at a time would make
+    each layer's gradient a zero-filled copy of the whole stack."""
+    names = list(block)
+    return [dict(zip(names, ws))
+            for ws in zip(*(block[n].unbind(0) for n in names))]
 
 
 def zero_aux(device) -> dict:
     """The auxiliary losses of a model without MoE layers: all 0."""
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return {"load_balance": zero, "router_z": zero, "dropped_frac": zero}
+
+
+# ======================================================================
+# Activation recomputation (the reference's jax.checkpoint)
+# ======================================================================
+class _Recompute(torch.autograd.Function):
+    """``fn(*inputs)`` that saves only its inputs and recomputes ``fn``
+    under ``torch.func.vjp`` on the backward pass.  It composes with
+    autograd, ``torch.func.grad`` and ``vmap(grad)`` (``setup_context``
+    and a generated vmap rule); ``torch.utils.checkpoint`` composes with
+    none of the transforms.  Integer inputs get no gradient."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *inputs):
+        return fn(*inputs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        inputs = ctx.saved_tensors
+        diff = [i for i, t in enumerate(inputs) if t.is_floating_point()]
+
+        def primal(*wrt):
+            full = list(inputs)
+            for i, t in zip(diff, wrt):
+                full[i] = t
+            return ctx.fn(*full)
+
+        # the gradients leave detached: attached, they would keep the
+        # recomputed graph (every layer's activations) alive, recorded for
+        # a double backward that nothing takes, until the whole backward
+        # pass ends
+        with torch.enable_grad():
+            _, vjp = torch.func.vjp(primal, *(inputs[i] for i in diff))
+            grads = [None] * len(inputs)
+            for i, g in zip(diff, vjp(cotangents)):
+                grads[i] = g.detach()
+        return (None, *grads)
+
+
+def recompute(fn, *args):
+    """``fn(*args)`` with its activations recomputed on the backward pass
+    instead of kept: only the tensor leaves of `args` (the layer's input
+    and params, passed explicitly so that their gradients flow) are
+    saved.  `args` and the result are pytrees of tensors."""
+    leaves, spec = tree_flatten(args)
+    out_spec = []
+
+    def flat_fn(*flat):
+        out_leaves, o_spec = tree_flatten(fn(*tree_unflatten(spec, flat)))
+        out_spec[:] = [o_spec]
+        return tuple(out_leaves)
+
+    out = _Recompute.apply(flat_fn, *leaves)
+    return tree_unflatten(out_spec[0], list(out))
 
 
 # ======================================================================
@@ -139,7 +204,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # repro_torch.kernels.flash_attention, selected by `attention`.
 # ======================================================================
 NEG_INF = -1e30
-_ATTENTION_IMPLS = ("auto", "pallas", "fused", "chunked", "ref")
+_ATTENTION_IMPLS = ("auto", "plain", "pallas", "fused", "chunked", "ref")
 
 
 def _gqa_expand(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
@@ -253,14 +318,16 @@ def attention(q, k, v, *, causal=True, window=0, impl="auto",
               **kw) -> torch.Tensor:
     """Dispatch: "pallas" or "fused" is the hand-written flash kernel (its
     plain version for CPU tensors); "chunked" and "ref" the plain paths;
-    "auto" the kernel for CUDA tensors, otherwise what the reference picks
-    on a CPU (chunked above S = 1024, else ref)."""
+    "plain" what the reference picks off the TPU, on any device (chunked
+    above S = 1024, else ref); "auto" the kernel for CUDA tensors,
+    otherwise "plain"."""
     if impl not in _ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; valid impls: "
                          f"{_ATTENTION_IMPLS}")
     if impl == "auto":
-        impl = "pallas" if q.device.type == "cuda" else (
-            "chunked" if q.shape[1] > 1024 else "ref")
+        impl = "pallas" if q.device.type == "cuda" else "plain"
+    if impl == "plain":
+        impl = "chunked" if q.shape[1] > 1024 else "ref"
     if impl in ("pallas", "fused"):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)

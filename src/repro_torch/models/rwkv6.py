@@ -18,9 +18,10 @@ The decode step asks the WKV op for ``impl="auto"``: the kernel at T = 1
 on the card, the plain version on the CPU.  The reference's decode step
 passes ``impl="ref"`` only because a one-token Pallas grid is wasteful on
 a TPU; both compute the same function, and the card's serving path runs
-no plain recurrence.  Training (`serving.harness.LMFederation`) asks for
-``impl="ref"``, as the reference does, because the kernel has no
-backward pass yet.
+no plain recurrence.  Training (`serving.harness.LMFederation`,
+`training.train`) takes the plain path (``impl="ref"``, or the trainer's
+``"auto"``, which resolves to ``"plain"``), as the reference does: the
+kernel has no backward pass, and a gradient through it raises.
 """
 from __future__ import annotations
 
@@ -166,15 +167,15 @@ def _block(cfg: ModelConfig, p: Params, x, s0, impl: str):
 def forward_features(cfg: ModelConfig, params: Params, batch, *,
                      impl: str = "auto", remat: bool = False):
     """Backbone output before the LM head: (features (B,S,d), aux, head
-    (d,V)).  ``remat`` belongs to the training slice and is not ported
-    yet."""
-    if remat:
-        raise NotImplementedError("remat is not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 29)")
+    (d,V)).  ``remat`` recomputes each layer on the backward pass
+    (`layers.recompute`), as the reference's ``jax.checkpoint``."""
     x, s0 = _embed(cfg, params, batch["tokens"])
-    for i in range(cfg.n_layers):
-        x, _, _, _ = _block(cfg, L.layer_params(params["block"], i), x, s0,
-                            impl)
+
+    def body(x, p, s0):
+        return _block(cfg, p, x, s0, impl)[0]
+
+    for p in L.unstack_layers(params["block"]):
+        x = L.recompute(body, x, p, s0) if remat else body(x, p, s0)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, L.zero_aux(x.device), params["lm_head"]
 
@@ -192,9 +193,8 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_seq_len: int,
     (final per-layer WKV matrices + last-token shift states)."""
     x, s0 = _embed(cfg, params, batch["tokens"])
     wkv, st, sc = [], [], []
-    for i in range(cfg.n_layers):
-        x, S_new, h1, h2 = _block(cfg, L.layer_params(params["block"], i),
-                                  x, s0, impl)
+    for p in L.unstack_layers(params["block"]):
+        x, S_new, h1, h2 = _block(cfg, p, x, s0, impl)
         wkv.append(S_new)
         st.append(h1[:, -1].to(L.COMPUTE_DTYPE))
         sc.append(h2[:, -1].to(L.COMPUTE_DTYPE))
@@ -228,8 +228,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     written."""
     x = F.embedding(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
     wkv, st, sc = [], [], []
-    for i in range(cfg.n_layers):
-        p = L.layer_params(params["block"], i)
+    for i, p in enumerate(L.unstack_layers(params["block"])):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         tm, S_new = _time_mix(cfg, p, h, state["shift_t"][i][:, None],
                               state["wkv"][i], "auto")

@@ -159,16 +159,18 @@ def forward_features(cfg: ModelConfig, params: Params,
                      batch: Dict[str, torch.Tensor], *, impl: str = "auto",
                      remat: bool = False):
     """Backbone output before the LM head: (features (B,S,d), aux, head
-    (d,V)).  ``remat`` (activation recomputation) belongs to the training
-    slice and is not ported yet."""
-    if remat:
-        raise NotImplementedError("remat is not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 29)")
+    (d,V)).  ``remat`` keeps only each layer's input and recomputes the
+    layer on the backward pass (`layers.recompute`), as the reference's
+    ``jax.checkpoint`` of its scan body."""
     x, positions = embed_inputs(cfg, params, batch)
+
+    def body(x, p, positions):
+        return _block(cfg, p, x, positions, impl)
+
     auxs = []
-    for i in range(cfg.n_layers):
-        x, aux = _block(cfg, L.layer_params(params["block"], i), x,
-                        positions, impl)
+    for p in L.unstack_layers(params["block"]):
+        x, aux = (L.recompute(body, x, p, positions) if remat
+                  else body(x, p, positions))
         auxs.append(aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, _mean_aux(auxs), _head(cfg, params)
@@ -213,9 +215,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     W = cache_window(cfg, cache_seq_len)
     take = min(W, S)
     auxs, k_tail, v_tail = [], [], []
-    for i in range(cfg.n_layers):
-        x, aux, (k, v) = _block(cfg, L.layer_params(params["block"], i),
-                                x, positions, impl, collect_kv=True)
+    for p in L.unstack_layers(params["block"]):
+        x, aux, (k, v) = _block(cfg, p, x, positions, impl, collect_kv=True)
         auxs.append(aux)
         k_tail.append(k[:, S - take:])
         v_tail.append(v[:, S - take:])
@@ -240,8 +241,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     positions = pos[:, None]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ks, vs, ps = [], [], []
-    for i in range(cfg.n_layers):
-        p = L.layer_params(params["block"], i)
+    for i, p in enumerate(L.unstack_layers(params["block"])):
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, hq, hd)
         k = (h @ p["wk"].to(h.dtype)).reshape(B, 1, hkv, hd)

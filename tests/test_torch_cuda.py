@@ -989,3 +989,126 @@ def test_hierarchical_device_merge_on_card_matches_cpu(cuda):
                                    outs[0]["w"].numpy(), atol=1e-6, rtol=0)
         if m is not None:
             assert torch.equal(outs[1]["w"][2].cpu(), torch.from_numpy(x[2]))
+
+
+# ----------------------------------------------------------------------
+# training: the LM kernels refuse gradients; the trainer's plain paths
+
+def _lm_kernel_calls(cuda):
+    """(name, inputs, call) of each forward-only LM kernel at a small
+    shape; `call` returns a tensor output."""
+    g = torch.Generator(cuda).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    q, kv = randn(1, 2, 64, 64), randn(1, 1, 64, 64)
+    r = randn(1, 16, 2, 64)
+    w = -torch.rand((1, 16, 2, 64), generator=g, device=cuda)
+    u, s0 = randn(2, 64, dtype=torch.float32), torch.zeros((1, 2, 64, 64),
+                                                           device=cuda)
+    a = torch.rand((1, 40, 32), generator=g, device=cuda)
+    B, h0 = randn(1, 40, 16, dtype=torch.float32), torch.zeros(
+        (1, 32, 16), device=cuda)
+    return [
+        ("flash_attention_bhsd", [q, kv, kv],
+         lambda q, k, v: fa_kernel.flash_attention_bhsd(q, k, v)),
+        ("wkv6_bthd", [r, r, r, w, u, s0],
+         lambda *x: wkv_kernel.wkv6_bthd(*x)[0]),
+        ("ssm_scan_btd", [a, a, B, B, h0],
+         lambda *x: ssm_kernel.ssm_scan_btd(*x)[0]),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_lm_kernels_refuse_gradients(cuda, which):
+    """A gradient through flash, WKV6 or the scan raises, under
+    .backward() and under torch.func.grad, naming the plain path; without
+    grad the same call launches (one more count)."""
+    name, inputs, call = _lm_kernel_calls(cuda)[which]
+    wrapper = {"flash_attention_bhsd": fa_kernel.flash_attention_bhsd,
+               "wkv6_bthd": wkv_kernel.wkv6_bthd,
+               "ssm_scan_btd": ssm_kernel.ssm_scan_btd}[name]
+    before = wrapper.launches
+    tracked = [inputs[0].clone().requires_grad_()] + inputs[1:]
+    with pytest.raises(RuntimeError, match=f'{name}.*no backward.*impl="ref"'):
+        call(*tracked).float().sum().backward()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        torch.func.grad(lambda x: call(x, *inputs[1:]).float().sum())(
+            inputs[0])
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        torch.func.vmap(torch.func.grad(
+            lambda x: call(x[None], *inputs[1:]).float().sum()))(inputs[0])
+    assert wrapper.launches == before
+    with torch.no_grad():
+        call(*tracked)
+    call(*inputs)
+    assert wrapper.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two steps of reduced smollm-360m (the trainer's impl="auto": the
+    plain paths on the card too) equal the CPU's: loss within rtol 1e-3,
+    AdamW's m and v within 4% of each leaf's largest (bf16 compute; the
+    CPU's bf16 moments read 1.4-1.7% against the JAX package's), no
+    kernel launched.  The first step's lr is 0 (warm-up), so m holds
+    both steps' gradients at the starting params; the params are not
+    held, as AdamW moves one by about lr a step whatever its gradient."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.pytree import tree_map
+    from repro_torch.training import TrainConfig, make_train_step
+    cfg = reduced(ARCHS["smollm-360m"])
+    toks = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 4, 48)).astype(np.int32)
+    host = models.init_params(cfg, torch.Generator().manual_seed(0))
+    before = fa_kernel.flash_attention_bhsd.launches
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev), host)
+        step = make_train_step(cfg, TrainConfig(
+            optimizer=AdamWConfig(learning_rate=1e-3), warmup_steps=1,
+            total_steps=4))
+        opt = adamw_init(params)
+        for s in range(2):
+            params, opt, m = step(params, opt,
+                                  torch.tensor(s, dtype=torch.int32,
+                                               device=dev),
+                                  {"tokens": torch.from_numpy(toks[s])
+                                   .to(dev)})
+        out[str(dev)] = (float(m["loss"]), tree_map(lambda x: x.cpu(), opt))
+    assert fa_kernel.flash_attention_bhsd.launches == before
+    np.testing.assert_allclose(out[str(cuda)][0], out["cpu"][0], rtol=1e-3)
+    for key in ("m", "v"):
+        for a, b in zip(tree_flatten(out[str(cuda)][1][key])[0],
+                        tree_flatten(out["cpu"][1][key])[0]):
+            np.testing.assert_allclose(
+                a.numpy(), b.numpy(), rtol=0,
+                atol=0.04 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b", "hymba-1.5b"])
+def test_remat_under_vmap_grad_on_card(cuda, arch):
+    """The recompute helper under vmap(grad) on the card, as the overlay
+    calls the local step: gradients equal to no remat's bit for bit."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.pytree import tree_map
+    from repro_torch.training import TrainConfig, make_loss_fn
+    cfg = reduced(ARCHS[arch])
+    params = models.init_params(cfg, torch.Generator(cuda).manual_seed(1))
+    stacked = tree_map(lambda x: torch.stack([x, x * 0.9]), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 2, 40)).astype(np.int32)).to(cuda)
+    grads = {}
+    for remat in (False, True):
+        fn = make_loss_fn(cfg, TrainConfig(remat=remat))
+        grads[remat] = torch.func.vmap(torch.func.grad(fn, has_aux=True))(
+            stacked, {"tokens": toks})[0]
+    for a, b in zip(tree_flatten(grads[False])[0],
+                    tree_flatten(grads[True])[0]):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)

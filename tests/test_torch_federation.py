@@ -263,7 +263,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "new = {'repro_torch.checkpoint.store', 'repro_torch.checkpoint"
         ".snapshot', 'repro_torch.chaos.recovery', 'repro_torch.core"
         ".device_tier', 'repro_torch.continuum.placement', 'repro_torch"
-        ".continuum.costmodel'}\n"
+        ".continuum.costmodel', 'repro_torch.optim.adamw', 'repro_torch"
+        ".optim.schedules', 'repro_torch.training.train', 'repro_torch"
+        ".core.scheduler', 'repro_torch.launch.train', 'repro_torch.launch"
+        ".ehr_train'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
