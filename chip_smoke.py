@@ -5,6 +5,7 @@
     python3 chip_smoke.py --depth-probe   # the recurrent paths' depth cut
     python3 chip_smoke.py --turns PARENT  # two kernels vs a parent tree's
     python3 chip_smoke.py --training      # the training path alone
+    python3 chip_smoke.py --families      # the MoE, audio, VLM paths alone
 
 Builds the port's CUDA kernels from this checkout (each
 ``src/repro_torch/csrc/*.cu`` into its own library for sm_90a, one nvcc
@@ -266,6 +267,22 @@ FLASH_CASES += [
     (2, 190, 8, 2, 128, torch.float32, True, 0, "qkv"),
     (2, 190, 8, 2, 64, torch.float32, True, 0, "odd"),
 ]
+# the MoE, audio and VLM families' prefill attention at full width:
+# hubert-xlarge's encoder (non-causal, hd 80, group 1) over 1,500 frames,
+# 30 s of audio at HuBERT's 20 ms frame rate (arXiv:2106.07447), 4
+# clips; llava-next's 2,304 patch embeddings and 2,048 text tokens under
+# its 4,096-token sliding window (hd 128, group 4); olmoe's served
+# prompts (group 1, 64..1,024 tokens); dbrx's DBRX_BATCH prompts of
+# DBRX_PROMPT tokens (group 6)
+FLASH_HUBERT = (4, 1500, 16, 16, 80)
+FLASH_LLAVA, LLAVA_WINDOW = (1, 4352, 32, 8, 128), 4096
+FAMILY_FLASH_CASES = [
+    FLASH_HUBERT + (torch.bfloat16, False, 0, ""),
+    FLASH_LLAVA + (torch.bfloat16, True, LLAVA_WINDOW, ""),
+    (1, 1000, 16, 16, 128, torch.bfloat16, True, 0, ""),
+    (2, 1024, 48, 8, 128, torch.bfloat16, True, 0, ""),
+]
+FLASH_CASES += FAMILY_FLASH_CASES
 # fp32 q rows that no key may attend to (they are 0): (Sq, Skv, hd,
 # causal, window), Sq > Skv, across the tile edges
 FLASH_EMPTY_CASES = [(130, 70, 64, True, 8), (200, 65, 128, True, 16),
@@ -357,8 +374,13 @@ N_REQUESTS, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 64, 1024
 # largest step is the size of hymba's at 0.1 (`--depth-probe` prints
 # both)
 LM_PATHS = [("qwen3-0.6b", 28, 0.1), ("rwkv6-3b", 12, 1e-6),
-            ("hymba-1.5b", 17, 0.1)]
+            ("hymba-1.5b", 17, 0.1), ("olmoe-1b-7b", 2, 0.1)]
 TRAIN_PEAK_LIMIT_GIB = 70.0
+# the depths `--depth-probe` measures first, for its line through the
+# peaks: olmoe's 1.68 GB a layer (402.65 M expert parameters) x 3
+# institutions passes the limit before 6 layers
+PROBE_DEPTHS = {"rwkv6-3b": (2, 6), "hymba-1.5b": (2, 6),
+                "olmoe-1b-7b": (1, 2)}
 # the LM kernels' sources and the TPU kernels they replace
 # the legacy two-stage round (slice 4): kernel checks at every P and N
 # here, params in f32 / bf16 / f16; one ulp of the output type as rtol
@@ -434,14 +456,19 @@ def bound(kind, P, N, alive_rows):
 
 
 def flash_bound(B, S, Hq, Hkv, hd, itemsize=2, window=0,
-                rate=BF16_TC_FLOPS):
-    """(bytes_ms, ops_ms) of causal attention: q, k, v and o moved once;
-    4 * hd flops per unmasked (q, k) pair and head (QK^T and PV, a
-    multiply-add each), S(S+1)/2 pairs (fewer under a window), at `rate`
-    (the bf16 tensor-core rate; fp32 inputs: the fp32 rate)."""
+                rate=BF16_TC_FLOPS, causal=True):
+    """(bytes_ms, ops_ms) of attention: q, k, v and o moved once; 4 * hd
+    flops per unmasked (q, k) pair and head (QK^T and PV, a multiply-add
+    each), S(S+1)/2 pairs when causal (fewer under a window), S^2
+    without the mask, at `rate` (the bf16 tensor-core rate; fp32 inputs:
+    the fp32 rate)."""
     nbytes = B * S * hd * (2 * Hq + 2 * Hkv) * itemsize
     W = min(window, S) if window > 0 else S
-    pairs = W * (W + 1) / 2 + (S - W) * W
+    if causal:
+        pairs = W * (W + 1) / 2 + (S - W) * W
+    else:
+        assert window == 0, "no path runs a non-causal window"
+        pairs = S * S
     flops = 4 * hd * B * Hq * pairs
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
 
@@ -483,26 +510,64 @@ def cuda_ms(fn, inputs, iters):
     return start.elapsed_time(stop) / iters
 
 
-def device_us(fn, iters, host=True):
-    """{kernel name: [device us of each launch]} over `iters` calls of
-    fn(i), from torch.profiler's CUDA activity: the kernels' own time on
-    the card, without the host's launch gaps.  `host=False` traces the
-    card alone, which costs the host far less per operation."""
+PRIME_SPINS = 64    # short spin kernels that open each trace
+
+
+def prime_trace():
+    """Opens a trace with PRIME_SPINS short spin kernels and a 5 ms
+    pause.  Late in a long process a trace has missed up to its first 13
+    launches on the H100, and with them every launch of a short window;
+    the spins, left out of the results (`device_events`), stand in the
+    place of those launches."""
+    for _ in range(PRIME_SPINS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+    time.sleep(0.005)
+
+
+def device_events(prof):
+    """(name, start, device us) of each CUDA activity in a finished
+    trace, in start order, without `prime_trace`'s spins."""
+    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and "spin_kernel" not in e.name), key=lambda e: e[1])
+
+
+def traced(fn, iters, host=True):
+    """`device_events` of `iters` calls of fn(i) under torch.profiler's
+    CUDA activity, after `prime_trace`.  `host=False` traces the card
+    alone, which costs the host far less per operation."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if host:
         acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
+        prime_trace()
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
+    return device_events(prof)
+
+
+def device_us(fn, iters, host=True):
+    """{kernel name: [device us of each launch, in start order]} over
+    `iters` calls of fn(i) (`traced`): the kernels' own time on the
+    card, without the host's launch gaps."""
     out = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, _, us in traced(fn, iters, host):
+        out.setdefault(name, []).append(us)
     return out
 
 
 LEAD_IN = 5     # calls ahead of the timed ones in each profiled window
+
+
+def idle_share(busy_ms, ms):
+    """The card's idle share of `ms` given its busy time from a trace;
+    a trace that recorded no device activity measured nothing."""
+    if busy_ms <= 0:
+        return "idle not measured: the trace recorded no device activity"
+    return f"idle {1 - busy_ms / ms:.1%}"
 
 
 def kernel_median_ms(fn, iters, tag):
@@ -512,28 +577,20 @@ def kernel_median_ms(fn, iters, tag):
     times under torch.profiler's CUDA activity, and each median is taken
     over the last launches the trace recorded, in start order.  Late in a
     long process the trace can miss launches at the start of its window
-    (seen on the card: one of 101, two and three of 22) or all of them
-    (0 of 26, three traces in a row); the lead-in calls absorb a few, a
-    trace that recorded too few is taken again, and after three such
-    traces the calls are timed by CUDA events instead (`event_call_ms`:
-    every kernel a call launches)."""
+    (seen on the card: one of 101, two and three of 22, 13 of 21) or all
+    of them (0 of 26, three traces in a row); `prime_trace` and the
+    lead-in calls absorb them, a trace that recorded too few is taken
+    again, and after three such traces the calls are timed by CUDA
+    events instead (`event_call_ms`: every kernel a call launches)."""
     tags = {tag: 1} if isinstance(tag, str) else tag
     for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for i in range(LEAD_IN + iters):
-                fn(i)
-            torch.cuda.synchronize()
+        events = traced(fn, LEAD_IN + iters, host=False)
         ms = 0.0
         for t, per_call in tags.items():
-            mine = sorted((e.time_range.start, e.time_range.elapsed_us())
-                          for e in prof.events()
-                          if str(e.device_type).endswith("CUDA")
-                          and t in e.name)
+            mine = [us for name, _, us in events if t in name]
             if len(mine) < iters * per_call:
                 break
-            ms += per_call * float(np.median(
-                [us for _, us in mine[-iters * per_call:]])) / 1e3
+            ms += per_call * float(np.median(mine[-iters * per_call:])) / 1e3
         else:
             return ms
     ms = event_call_ms(fn, iters)
@@ -828,16 +885,17 @@ def check_secure_agg_wide(kernels, dev):
               f" s)")
 
 
-def check_flash(dev):
-    """The flash kernel against its plain version on every listed shape
-    and on rows without keys; returns the largest |err| over the bf16
-    cases and over the fp32 ones."""
+def check_flash(dev, cases=None):
+    """The flash kernel against its plain version on every shape of
+    `cases` (FLASH_CASES by default, and then on rows without keys too);
+    returns the largest |err| over the bf16 cases and over the fp32
+    ones."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for i, (B, S, Hq, Hkv, hd, dtype, causal, window, layout) in enumerate(
-            FLASH_CASES):
+            cases or FLASH_CASES):
         g = torch.Generator(dev).manual_seed(i)
         q, k, v = flash_inputs(g, dev, B, S, Hq, Hkv, hd, dtype, layout)
         before = fa_kernel.flash_attention_bhsd.launches
@@ -856,8 +914,10 @@ def check_flash(dev):
               f"{(B, S, Hq, Hkv, hd)} {str(dtype)[6:]} causal={causal} "
               f"window={window}{' ' + layout if layout else ''}: max |err| "
               f"{err:.3g} (tol {tol})")
+        del q, k, v, got, want
     tol = FLASH_TOL[torch.float32]
-    for i, (Sq, Skv, hd, causal, window) in enumerate(FLASH_EMPTY_CASES):
+    for i, (Sq, Skv, hd, causal, window) in enumerate(
+            [] if cases else FLASH_EMPTY_CASES):
         g = torch.Generator(dev).manual_seed(100 + i)
         q, k, v = (torch.randn((1, h, s, hd), generator=g, device=dev)
                    for h, s in ((4, Sq), (2, Skv), (2, Skv)))
@@ -1047,11 +1107,6 @@ def cnn_card_vs_cpu(dev, fed_kwargs):
               f"2 rounds")
 
 
-def bf16_atol(want, ulps):
-    """`ulps` bf16 ulps of the largest magnitude in `want`."""
-    return ulps * 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
-
-
 def kernel_wrappers():
     """{name: wrapper} of the kernels the LM paths launch."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1062,60 +1117,97 @@ def kernel_wrappers():
             "ssm_scan_btd": ssm_kernel.ssm_scan_btd}
 
 
-def expected_launches(cfg, prefills, ticks):
-    """The launches of each LM kernel that `prefills` prefills and
-    `ticks` decode steps of `cfg` must make: prefill attention goes
-    through the flash kernel, each recurrence through its kernel in
-    prefill and decode alike; decode attention is plain code."""
+def expected_launches(cfg, prefills, ticks, forwards=0):
+    """The launches of each LM kernel that `prefills` prefills, `ticks`
+    decode steps and `forwards` encoder forwards of `cfg` must make:
+    prefill (and encoder) attention goes through the flash kernel, each
+    recurrence through its kernel in prefill and decode alike; decode
+    attention is plain code."""
     L = cfg.n_layers
-    return {"flash_attention_bhsd": L * prefills if cfg.family != "ssm"
-            else 0,
+    return {"flash_attention_bhsd": L * (prefills + forwards)
+            if cfg.family != "ssm" else 0,
             "wkv6_bthd": L * (prefills + ticks) if cfg.family == "ssm"
             else 0,
             "ssm_scan_btd": L * (prefills + ticks)
             if cfg.family == "hybrid" else 0}
 
 
-def lm_card_vs_cpu(dev, arch):
-    """Reduced `arch` prefill and 4 decode steps, card (the kernels,
-    cuBLAS) against CPU (plain path), with the same params and tokens."""
+def lm_card_vs_cpu(dev, arch, compute=None):
+    """Reduced `arch` prefill (with its patch embeddings for a VLM) and
+    4 decode steps, or one encoder forward (hubert), card (the kernels,
+    cuBLAS) against CPU (plain path), with the same params and inputs;
+    `compute`: the models' COMPUTE_DTYPE for the call (default bf16).
+    MoE routing is compared call by call (`compare.routing_flips`); in
+    fp32 it must be equal.  The logits are held within 8 bf16 ulps of
+    the largest (fp32: FP32_LOGIT_TOL of it), tokens flipped or not."""
     from repro_torch import models
     from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import layers
+    from repro_torch.models.compare import (RouterTap, bf16_ulps,
+                                            family_batch, routes,
+                                            routing_flips)
     from repro_torch.pytree import tree_map
 
     cfg = reduced(ARCHS[arch])
+    compute = compute or layers.COMPUTE_DTYPE
+    before_dtype, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, compute
     wrappers = kernel_wrappers()
     params = models.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        1, cfg.vocab_size, (2, 77)).astype(np.int32))
+    batch = family_batch(cfg, 2, 77, 0)
+    S = 77 + (cfg.n_image_patches if cfg.modality == "vlm" else 0)
     nxt = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, (2, 4)).astype(np.int32))
-    out = {}
-    for where in ("cpu", dev):
-        p = tree_map(lambda x: x.to(where), params)
-        before = {k: w.launches for k, w in wrappers.items()}
-        lg, st, _ = models.prefill(cfg, p, {"tokens": toks.to(where)}, 128)
-        logits = [lg[:, -1]]
-        for t in range(4):
-            pos = torch.full((2,), 77 + t, dtype=torch.int32, device=where)
-            d, st = models.decode_step(cfg, p, st, nxt[:, t].to(where), pos)
-            logits.append(d)
-        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
-        want = (dict.fromkeys(wrappers, 0) if where == "cpu"
-                else expected_launches(cfg, 1, 4))
-        assert launched == want, (arch, where, launched, want)
-        out[str(where)] = [x.float().cpu() for x in logits]
+    want = (expected_launches(cfg, 0, 0, forwards=1) if cfg.encoder_only
+            else expected_launches(cfg, 1, 4))
+    out, taps = {}, {}
+    try:
+        for where in ("cpu", dev):
+            p = tree_map(lambda x: x.to(where), params)
+            b = {k: v.to(where) for k, v in batch.items()}
+            before = {k: w.launches for k, w in wrappers.items()}
+            with RouterTap() as tap:
+                if cfg.encoder_only:
+                    logits = [models.forward(cfg, p, b)[0]]
+                else:
+                    lg, st, _ = models.prefill(cfg, p, b, 128)
+                    logits = [lg[:, -1]]
+                    for t in range(4):
+                        pos = torch.full((2,), S + t, dtype=torch.int32,
+                                         device=where)
+                        d, st = models.decode_step(cfg, p, st,
+                                                   nxt[:, t].to(where), pos)
+                        logits.append(d)
+            launched = {k: w.launches - before[k]
+                        for k, w in wrappers.items()}
+            assert launched == (dict.fromkeys(wrappers, 0) if where == "cpu"
+                                else want), (arch, where, launched, want)
+            out[str(where)] = [x.float().cpu() for x in logits]
+            taps[str(where)] = routes(tap.calls)
+    finally:
+        layers.COMPUTE_DTYPE = before_dtype
+    fp32 = compute == torch.float32
+    report = routing_flips(taps[str(dev)], taps["cpu"]) if cfg.is_moe \
+        else None
+    assert not (fp32 and report.flips), report.flips
     worst = 0.0
     for a, b in zip(out["cpu"], out[str(dev)]):
         # bf16 matmuls round in other places on cuBLAS than on the CPU,
         # and the kernels sum in another order: held to 8 bf16 ulps of
-        # the largest logit
-        atol = bf16_atol(a, 8)
+        # the largest logit; fp32 compute within FP32_LOGIT_TOL of it
+        atol = (FP32_LOGIT_TOL * float(a.abs().max()) if fp32
+                else bf16_ulps(a, 8))
         torch.testing.assert_close(b, a, atol=atol, rtol=0)
-        worst = max(worst, float((a - b).abs().max()) / atol * 8)
-    print(f"reference {arch}-reduced: card == CPU on prefill (B=2, S=77) + "
-          f"4 decode steps, max |err| {worst:.2f} bf16 ulps of the largest "
-          f"logit (bound 8); card launches {expected_launches(cfg, 1, 4)}")
+        worst = max(worst, float((a - b).abs().max()) / atol)
+    patches = ", 16 patches" if cfg.modality == "vlm" else ""
+    what = ("one encoder forward (B=2, S=77)" if cfg.encoder_only else
+            f"prefill (B=2, S={S}{patches}) + 4 decode steps")
+    bound = (f"{worst * FP32_LOGIT_TOL:.3g} of the largest logit (bound "
+             f"{FP32_LOGIT_TOL:g})" if fp32 else
+             f"{worst * 8:.2f} bf16 ulps of the largest logit (bound 8)")
+    print(f"reference {arch}-reduced{' fp32 compute' if fp32 else ''}: "
+          f"card == CPU on {what}, max |err| {bound}"
+          + (f"; {report.note()}" if report else "")
+          + f"; card launches {want}")
 
 
 # the fp32-compute prefill: the reference's own switch
@@ -1289,8 +1381,8 @@ def cnn_main_path(dev, kernels, fed_kwargs, totals):
                 device_us(lambda i: fed.run_rounds(1), 1).items()}
         busy = sum(prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
-        print(f"  device busy {busy:.2f} ms of {ms:.2f} ms/round (idle "
-              f"{1 - busy / ms:.1%}); top kernels: "
+        print(f"  device busy {busy:.2f} ms of {ms:.2f} ms/round ("
+              f"{idle_share(busy, ms)}); top kernels: "
               + "; ".join(f"{key[:50]} {t:.3f} ms" for key, t in top))
 
 
@@ -1302,6 +1394,23 @@ def lm_requests(vocab):
     lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
     return [Request(uid=i, prompt=rng.integers(1, vocab, n).tolist(),
                     max_new_tokens=MAX_NEW) for i, n in enumerate(lens)]
+
+
+def moe_dropped_frac(fed):
+    """The mean dropped_frac (the share of token-expert assignments over
+    their expert's capacity) of the round `fed` is about to run, on its
+    first local step: each institution's forward on its first batch,
+    outside the round's vmap (aux cannot leave it)."""
+    from repro_torch import models
+    from repro_torch.pytree import tree_map
+    toks = fed._round_batches(fed.overlay.round_index)[0]
+    with torch.no_grad():
+        fracs = [models.forward(fed.cfg, tree_map(lambda x: x[i],
+                                                  fed.stacked),
+                                {"tokens": toks[i]},
+                                impl="ref")[1]["dropped_frac"]
+                 for i in range(fed.P)]
+    return float(torch.stack(fracs).mean())
 
 
 def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
@@ -1323,6 +1432,7 @@ def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers)
+    recurrent = cfg.family in ("ssm", "hybrid")
     cut = ("" if n_layers == full.n_layers else
            f", cut from {full.n_layers} layers (published widths)")
     scfg = ServeConfig(max_seq_len=2048, batch_size=8)
@@ -1340,6 +1450,10 @@ def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
     n_params = sum(x[0].numel() for x in tree_flatten(fed.stacked)[0])
     assert n_params == models.param_count(cfg), n_params
     gb = n_params * 4 / 1e9
+    routed = ""
+    if cfg.is_moe:
+        routed = (f" | dropped_frac {moe_dropped_frac(fed):.4f} (the "
+                  f"round's first local step)")
     flush = Stopwatch(fed.overlay._flush)
     fed.overlay._flush = flush
     t0 = time.perf_counter()
@@ -1365,7 +1479,7 @@ def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
           f"parameters | init {init_s:.2f} s | 1 round (lr {lr:g}) "
           f"{round_ms:.2f} ms ({flush.seconds * 1e3:.2f} of it the DLT "
           f"flush: 4 fingerprints of {gb:.2f} GB each on the host) | loss "
-          f"{[round(float(x), 4) for x in loss[0]]} | publish "
+          f"{[round(float(x), 4) for x in loss[0]]}{routed} | publish "
           f"{publish_ms:.2f} ms | verified pull {pull_ms:.2f} ms (SHA-256 "
           f"over {gb:.2f} GB, {model.parents_verified} parent proofs) | peak "
           f"device memory {train_peak:.2f} GiB")
@@ -1416,10 +1530,10 @@ def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
               f"({ticks} ticks) | launches "
               + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
               + f" ({n_layers} layers x {n_prefill} prefills"
-              + (f" + {ticks} ticks" if cfg.family != "dense" else "")
+              + (f" + {ticks} ticks" if recurrent else "")
               + f"; prefill {n_layers * n_prefill}"
               + (f", decode {n_layers * ticks} each recurrence"
-                 if cfg.family != "dense" else "")
+                 if recurrent else "")
               + f") | peak device memory {serve_peak:.2f} GiB ({resident:.2f} "
               f"GiB resident: params and decode state)")
 
@@ -1446,7 +1560,7 @@ def lm_main_path(dev, arch, n_layers, lr, all_wrappers):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"  one batch again ({scfg.batch_size} prefills + 8 tokens "
           f"each): {wall_ms:.1f} ms on the host clock, device busy "
-          f"{busy:.1f} ms (idle {1 - busy / wall_ms:.1%}), "
+          f"{busy:.1f} ms ({idle_share(busy, wall_ms)}), "
           f"{sum(n for _, n in per_kernel.values())} device activities; top:"
           + "; ".join(f" {key[:44]} {t:.1f} ms/{n}" for key, (t, n) in top))
     del srv
@@ -1482,34 +1596,44 @@ def train_round(dev, cfg, lr, steps=False):
 
 
 def depth_probe(dev):
-    """For each recurrent family at its published width: the training
-    round's peak at 2 and 6 layers, the line through them, then the peak
+    """For each cut family at its published width: the training round's
+    peak at the two PROBE_DEPTHS, the line through them, then the peak
     at each depth from two below that line's fit upward, until one
-    reaches the limit: the depth before it is the cut.  At the cut, the
-    round's largest param step at the harness's lr 0.1 and at the path's
-    lr."""
+    reaches the limit (or runs out of the card's memory): the depth
+    before it is the cut.  At the path's depth, the round's largest param
+    step at the harness's lr 0.1 and at the path's lr."""
     import dataclasses
     from repro_torch.configs import get_config
+
+    def peak_at(full, d, lr):
+        try:
+            return train_round(dev, dataclasses.replace(full, n_layers=d),
+                               lr)
+        except torch.OutOfMemoryError:
+            pass                        # past the card: past the limit
+        gc.collect()
+        torch.cuda.empty_cache()
+        return float("inf")
     for arch, cut, lr in LM_PATHS[1:]:
         full = get_config(arch)
-        peak = {d: train_round(
-            dev, dataclasses.replace(full, n_layers=d), lr) for d in (2, 6)}
-        per_layer = (peak[6] - peak[2]) / 4
-        base = peak[2] - 2 * per_layer
-        depth = int((TRAIN_PEAK_LIMIT_GIB - base) // per_layer) - 2
-        print(f"depth probe {arch}: {peak[2]:.2f} GiB at 2 layers, "
-              f"{peak[6]:.2f} GiB at 6: {per_layer:.3f} GiB a layer over "
-              f"{base:.2f} GiB")
+        lo, hi = PROBE_DEPTHS[arch]
+        peak = {d: peak_at(full, d, lr) for d in (lo, hi)}
+        per_layer = (peak[hi] - peak[lo]) / (hi - lo)
+        base = peak[lo] - lo * per_layer
+        depth = max(int((TRAIN_PEAK_LIMIT_GIB - base) // per_layer) - 2, 1)
+        print(f"depth probe {arch}: {peak[lo]:.2f} GiB at {lo} layers, "
+              f"{peak[hi]:.2f} GiB at {hi}: {per_layer:.3f} GiB a layer "
+              f"over {base:.2f} GiB")
         while depth < full.n_layers:
-            peak[depth] = train_round(
-                dev, dataclasses.replace(full, n_layers=depth), lr)
+            peak[depth] = peak_at(full, depth, lr)
             print(f"depth probe {arch}: {peak[depth]:.2f} GiB at {depth} "
                   f"layers")
             if peak[depth] >= TRAIN_PEAK_LIMIT_GIB:
                 break
             depth += 1
         print(f"depth probe {arch}: the largest depth below "
-              f"{TRAIN_PEAK_LIMIT_GIB:.0f} GiB is {depth - 1}")
+              f"{TRAIN_PEAK_LIMIT_GIB:.0f} GiB is {depth - 1}; the path "
+              f"runs {cut}")
         for rate in sorted({0.1, lr}, reverse=True):
             _, finite, step = train_round(
                 dev, dataclasses.replace(full, n_layers=cut), rate, True)
@@ -1518,90 +1642,121 @@ def depth_probe(dev):
                   f"param {step:.4g}")
 
 
-def time_flash(dev):
-    """The flash kernel at qwen3's prefill shape (S = 1024, causal), bf16
-    and fp32: profiler median over 101 launches cycling input sets larger
-    than the L2, the plain version's and SDPA's time on the same sets.
-    Returns {dtype: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+def library_median_ms(fn, iters):
+    """Device ms of one fn(i) call of a library: a call to warm it (cuDNN
+    builds its plan on the first), then LEAD_IN + `iters` calls traced
+    by torch.profiler on the card.  A kernel that the trace recorded at
+    least once a call for `iters` calls (m times a call, m from its
+    count over all the calls) gives its median over its last m * iters
+    launches, times m; the kernels' figures are summed.  After three
+    traces in which no kernel was recorded as often, the calls are
+    timed by CUDA events (`event_call_ms`).  Returns (ms, each kernel's
+    name with its launches a call and its median, least and largest
+    us)."""
+    fn(0)
+    torch.cuda.synchronize()
+    calls = LEAD_IN + iters
+    for _ in range(3):
+        per = device_us(fn, calls, host=False)
+        mult = {k: max(1, round(len(v) / calls)) for k, v in per.items()}
+        if any(len(v) >= iters * mult[k] for k, v in per.items()):
+            break
+    else:
+        ms = event_call_ms(fn, iters)
+        return ms, [f"kernels not traced (the profiler recorded "
+                    f"{sum(map(len, per.values()))} launches of {calls} "
+                    f"calls, three times): {ms * 1e3:.1f} us a call by "
+                    f"CUDA events"]
+    last = {k: v[-iters * mult[k]:] for k, v in per.items()}
+    ms = sum(mult[k] * float(np.median(v)) for k, v in last.items()) / 1e3
+    return ms, [f"{k[:120]} x{mult[k]} ({len(per[k])} of {calls} calls): "
+                f"{np.median(v):.1f} ({min(v):.1f}-{max(v):.1f}) us"
+                for k, v in last.items()]
+
+
+def time_flash_shape(dev, shape, label, dtype=torch.bfloat16, causal=True,
+                     window=0):
+    """The flash kernel at `shape` (B, S, Hq, Hkv, hd) in `dtype`:
+    profiler median over 101 launches cycling 8 input sets (past the 50
+    MB L2), the plain version's mean over 8 calls by CUDA events, and
+    SDPA's time on the same sets (`library_median_ms` over 101 calls;
+    GQA through enable_gqa, or, under a window, k and v repeated to Hq
+    heads outside the timing and the window as a boolean mask).  Prints
+    a line with SDPA's kernels (its backend); returns (ms, plain_ms,
+    bound_ms, bound_by, library_ms)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    B, S, Hq, Hkv, hd = FLASH_TIMED
+    B, S, Hq, Hkv, hd = shape
     g = torch.Generator(dev).manual_seed(7)
-    sets = [[torch.randn((B, S, h, hd), generator=g, device=dev).to(
-        torch.bfloat16) for h in (Hq, Hkv, Hkv)] for _ in range(8)]
-    bhsd = [[x.transpose(1, 2).contiguous() for x in st] for st in sets]
+    sets = [[torch.randn((B, S, h, hd), generator=g, device=dev).to(dtype)
+             for h in (Hq, Hkv, Hkv)] for _ in range(8)]
 
     def run(x):
-        return fa_ops.flash_attention(*x, causal=True)
+        return fa_ops.flash_attention(*x, causal=causal, window=window)
 
     def plain(x):
         return fa_ref.attention_reference(*(t.transpose(1, 2) for t in x),
-                                          causal=True)
-
-    def library(x):
-        return F.scaled_dot_product_attention(*x, is_causal=True,
-                                              enable_gqa=True)
+                                          causal=causal, window=window)
+    tag = ("flash_attention_bf16_kernel" if dtype == torch.bfloat16
+           else "flash_attention_f32_kernel")
     launch_ms = cuda_ms(run, sets, 100)
-    p_ms = cuda_ms(plain, sets, 10)
-    k_ms = kernel_median_ms(lambda i: run(sets[i % 8]), 101,
-                            "flash_attention_bf16_kernel")
-    library(bhsd[0])
-    torch.cuda.synchronize()
-    lib = device_us(lambda i: library(bhsd[i % 8]), 101)
-    lib_ms = sum(sum(v) for v in lib.values()) / 101 / 1e3
-    bytes_ms, ops_ms = flash_bound(B, S, Hq, Hkv, hd)
+    p_ms = cuda_ms(plain, sets, 8)
+    k_ms = kernel_median_ms(lambda i: run(sets[i % 8]), 101, tag)
+    rep = Hq // Hkv if window else 1
+    bhsd = [[t.transpose(1, 2).repeat_interleave(rep if j else 1, dim=1)
+             .contiguous() for j, t in enumerate(st)] for st in sets]
+    mask = None
+    if window:
+        i = torch.arange(S, device=dev)
+        diff = i[:, None] - i[None, :]
+        mask = (diff >= 0) & (diff < window)
+
+    def library(i):
+        return F.scaled_dot_product_attention(
+            *bhsd[i % 8], attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=rep == 1 and Hq != Hkv)
+    lib_ms, lib_names = library_median_ms(library, 101)
+    f32 = dtype == torch.float32
+    rate = FP32_OPS_PER_S if f32 else BF16_TC_FLOPS
+    bytes_ms, ops_ms = flash_bound(B, S, Hq, Hkv, hd, itemsize=4 if f32
+                                   else 2, window=window, rate=rate,
+                                   causal=causal)
     b_ms = max(bytes_ms, ops_ms)
     b_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    flops = 4 * hd * B * Hq * S * (S + 1) / 2
-    print(f"time flash_attention_bhsd {FLASH_TIMED} bf16 causal: kernel "
-          f"median {k_ms * 1e3:.1f} us on the card ({flops / k_ms / 1e9:.1f}"
-          f" TFLOP/s; {launch_ms * 1e3:.1f} us per call back to back, host "
-          f"launch included) | plain {p_ms * 1e3:.1f} us | SDPA "
-          f"{lib_ms * 1e3:.1f} us ({', '.join(k[:40] for k in lib)}) | "
-          f"bound {b_ms * 1e3:.2f} us by {b_by} (bytes {bytes_ms * 1e3:.2f} "
-          f"us, operations {ops_ms * 1e3:.2f} us); kernel at "
-          f"{b_ms / k_ms:.2%} of bound")
-    B, S, Hq, Hkv, hd = FLASH_HYMBA
-    hy = [[torch.randn((B, S, h, hd), generator=g, device=dev).to(
-        torch.bfloat16) for h in (Hq, Hkv, Hkv)] for _ in range(8)]
-    hy_ms = kernel_median_ms(
-        lambda i: fa_ops.flash_attention(*hy[i % 8], causal=True,
-                                         window=HYMBA_WINDOW), 101,
-        "flash_attention_bf16_kernel")
-    hy_bound = max(flash_bound(B, S, Hq, Hkv, hd, window=HYMBA_WINDOW))
-    print(f"time flash_attention_bhsd {FLASH_HYMBA} bf16 causal window "
-          f"{HYMBA_WINDOW}: kernel median {hy_ms * 1e3:.1f} us on the card "
-          f"| bound {hy_bound * 1e3:.2f} us; kernel at "
-          f"{hy_bound / hy_ms:.2%} of bound")
-    # the fp32 kernel (the models' prefill under an fp32 COMPUTE_DTYPE) at
-    # qwen3's shape, its bound at the fp32 rate, the plain version and
-    # SDPA on the same fp32 inputs
-    B, S, Hq, Hkv, hd = FLASH_TIMED
-    f32 = [[x.float() for x in st] for st in sets[:4]]
-    f32_ms = kernel_median_ms(
-        lambda i: fa_ops.flash_attention(*f32[i % 4], causal=True), 101,
-        "flash_attention_f32_kernel")
-    p32_ms = cuda_ms(plain, f32, 4)
-    f32_bhsd = [[x.transpose(1, 2).contiguous() for x in st] for st in f32]
-    library(f32_bhsd[0])
-    torch.cuda.synchronize()
-    lib32 = device_us(lambda i: library(f32_bhsd[i % 4]), 101)
-    lib32_ms = sum(sum(v) for v in lib32.values()) / 101 / 1e3
-    bytes32, ops32 = flash_bound(B, S, Hq, Hkv, hd, itemsize=4,
-                                 rate=FP32_OPS_PER_S)
-    b32 = max(bytes32, ops32)
-    print(f"time flash_attention_bhsd {FLASH_TIMED} fp32 causal: "
-          f"flash_attention_f32_kernel median {f32_ms * 1e3:.1f} us on the "
-          f"card ({flops / f32_ms / 1e9:.1f} TFLOP/s) | plain "
-          f"{p32_ms * 1e3:.1f} us | SDPA fp32 {lib32_ms * 1e3:.1f} us "
-          f"({', '.join(k[:40] for k in lib32)}) | bound {b32 * 1e3:.2f} us "
-          f"by {'bytes' if bytes32 >= ops32 else 'operations'} (bytes "
-          f"{bytes32 * 1e3:.2f} us, operations at the fp32 rate "
-          f"{ops32 * 1e3:.2f} us); kernel at {b32 / f32_ms:.2%} of bound")
-    return {torch.bfloat16: (k_ms, p_ms, b_ms, b_by, lib_ms),
-            torch.float32: (f32_ms, p32_ms, b32, "bytes" if bytes32 >= ops32
-                            else "operations", lib32_ms)}
+    flops = ops_ms / 1e3 * rate
+    print(f"time flash_attention_bhsd {shape} {str(dtype)[6:]} ({label}) "
+          f"causal={causal} window={window}: {tag} median "
+          f"{k_ms * 1e3:.1f} us on the card ({flops / k_ms / 1e9:.1f} "
+          f"TFLOP/s, {flops / 1e9:.1f} GFLOP; {launch_ms * 1e3:.1f} us per "
+          f"call back to back, host launch included) | plain "
+          f"{p_ms * 1e3:.1f} us | SDPA median {lib_ms * 1e3:.1f} us "
+          f"({'; '.join(lib_names)}) | bound "
+          f"{b_ms * 1e3:.2f} us by {b_by} (bytes {bytes_ms * 1e3:.2f} us, "
+          f"operations{' at the fp32 rate' if f32 else ''} "
+          f"{ops_ms * 1e3:.2f} us); kernel at {b_ms / k_ms:.2%} of bound")
+    del sets, bhsd
+    return k_ms, p_ms, b_ms, b_by, lib_ms
+
+
+def time_flash(dev):
+    """The flash kernel at the main paths' prefill shapes: qwen3's (S =
+    1024, causal) in bf16 and fp32, hymba's window, hubert's encoder and
+    llava's window (`time_flash_shape` each).  Returns ({dtype: the
+    kernel line's (ms, plain_ms, bound_ms, bound_by, library_ms)} at
+    qwen3's shape, {the flash row's keys hubert_* and llava_*})."""
+    bf16 = time_flash_shape(dev, FLASH_TIMED, "qwen3")
+    time_flash_shape(dev, FLASH_HYMBA, "hymba", window=HYMBA_WINDOW)
+    f32 = time_flash_shape(dev, FLASH_TIMED, "qwen3", dtype=torch.float32)
+    extra = {}
+    for label, shape, causal, window in (
+            ("hubert", FLASH_HUBERT, False, 0),
+            ("llava", FLASH_LLAVA, True, LLAVA_WINDOW)):
+        row = time_flash_shape(dev, shape, label, causal=causal,
+                               window=window)
+        extra.update({f"{label}_{k}": v for k, v in zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), row)})
+    return {torch.bfloat16: bf16, torch.float32: f32}, extra
 
 
 def time_recurrent(dev, name, shape):
@@ -1665,10 +1820,16 @@ def time_recurrent(dev, name, shape):
 
 def one_kernel_ms(fn, iters):
     """Median device ms of the one kernel (or copy) each fn(i) launches,
-    over `iters` calls under torch.profiler's CUDA activity."""
-    times = device_us(fn, iters, host=False)
-    assert len(times) == 1, list(times)
-    return float(np.median(next(iter(times.values())))) / 1e3
+    over `iters` calls under torch.profiler's CUDA activity; after three
+    traces that recorded under 90% of the launches, by CUDA events
+    (`event_call_ms`)."""
+    for _ in range(3):
+        times = device_us(fn, iters, host=False)
+        assert len(times) <= 1, list(times)
+        us = next(iter(times.values()), [])
+        if len(us) >= 0.9 * iters:
+            return float(np.median(us)) / 1e3
+    return event_call_ms(fn, iters)
 
 
 def time_secure_agg(dev, kernels, totals):
@@ -1691,9 +1852,7 @@ def time_secure_agg(dev, kernels, totals):
             bufs[i % n_buf].view(torch.int32), 0, dtype=torch.int32), 101)}
     # the DP kernel's row-norm pre-pass (square, sum, sqrt), summed over
     # its kernels' medians
-    prepass_ms = sum(float(np.median(us)) for us in device_us(
-        lambda i: dp_ref._row_norms(bufs[i % n_buf]), 101,
-        host=False).values()) / 1e3
+    prepass_ms = call_ms(lambda i: dp_ref._row_norms(bufs[i % n_buf]), 101)
     rows = []
     for name, k in kernels.items():
         if name == "clip_noise":
@@ -2275,8 +2434,8 @@ def profiled_round(fed, ms):
     """Device busy time of one extra round and the idle share of `ms`."""
     busy = sum(sum(v) for v in device_us(lambda i: fed.run_rounds(1),
                                          1).values()) / 1e3
-    return f"device busy {busy:.2f} ms of {ms:.2f} ms/round (idle " \
-        f"{1 - busy / ms:.1%})"
+    return f"device busy {busy:.2f} ms of {ms:.2f} ms/round (" \
+        f"{idle_share(busy, ms)})"
 
 
 def merges_main_path(dev, kernels, totals):
@@ -2950,9 +3109,9 @@ def device_tier_path(dev, kernels):
           f"{late:,} late device updates in {1 + R} rounds, every count and "
           f"weight equal to the host recount | run_rounds == eager, bit for "
           f"bit | launches of our kernels 0")
-    print(f"  device busy {busy:.2f} ms of {ms:.2f} ms/round (idle "
-          f"{1 - busy / ms:.1%}), {activities:,} device activities a round; "
-          f"top: " + "; ".join(f"{k[:40]} {t:.3f} ms" for k, t in top))
+    print(f"  device busy {busy:.2f} ms of {ms:.2f} ms/round ("
+          f"{idle_share(busy, ms)}), {activities:,} device activities a "
+          f"round; top: " + "; ".join(f"{k[:40]} {t:.3f} ms" for k, t in top))
     print(f"  one institution's sweep of {D:,} devices: "
           + ", ".join(f"chunk {c:,} {sweep_ms[c]:.2f} ms, peak "
                       f"{peaks[c] / 2 ** 20:.2f} MiB" for c in DEV_CHUNKS)
@@ -3182,6 +3341,438 @@ def serving_reboot_path(dev, all_wrappers):
 
 # ----------------------------------------------------------------------
 # training (slice 14): the train launcher's overlay at smollm-360m width
+
+# ----------------------------------------------------------------------
+# the MoE, audio and VLM families
+
+FAMILY_CARD_VS_CPU = [("dbrx-132b", None), ("hubert-xlarge", None),
+                      ("llava-next-mistral-7b", None),
+                      ("olmoe-1b-7b", torch.float32),
+                      ("dbrx-132b", torch.float32)]
+OLMOE_SERVE = ["--arch", "olmoe-1b-7b", "--requests", "16", "--batch", "8",
+               "--max-seq", "2048", "--max-new", "32"]
+HUBERT_TRAIN_STEPS = 3
+LLAVA_TEXT, LLAVA_DECODE = 2048, 32
+# dbrx-132b at its published width: 13.04 GB of fp32 weights a layer, so
+# 40 layers (526 GB) cannot sit on one 80 GB card; 2 layers and the
+# embeddings take 31.0 GB
+DBRX_DEPTH, DBRX_BATCH, DBRX_PROMPT = 2, 2, 1024
+
+
+def fresh_card(all_wrappers):
+    """Every launch count 0, the card's memory free, its peak reset."""
+    for w in all_wrappers:
+        w.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 2 ** 30, "memory left over"
+    torch.cuda.reset_peak_memory_stats()
+
+
+def decode_cast_bytes(cfg):
+    """The bytes one decode tick of `cfg` moves for its weights' casts,
+    as the reference casts them at every product: each stacked matrix
+    read in fp32, written in bf16 and read again by the product (8 bytes
+    a parameter; the fp32 router read once, 4), and the LM head likewise
+    (the norms aside)."""
+    from repro_torch import models
+    specs = models.param_specs(cfg)
+    n = sum(int(np.prod(sp.shape)) * (4 if name == "router" else 8)
+            for name, sp in specs["block"].items() if len(sp.shape) >= 3)
+    head = specs["embed" if cfg.tie_embeddings else "lm_head"]
+    return n + int(np.prod(head.shape)) * 8
+
+
+def profile_calls(fn, n):
+    """fn(i) for i < n between synchronizes, then again traced on the
+    card alone: (host ms a call, device busy ms a call, the top kernels
+    by device time a call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    per = {k: (sum(v) / 1e3 / n, len(v) / n)
+           for k, v in device_us(fn, n, host=False).items()}
+    busy = sum(t for t, _ in per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
+    return host_ms, busy, "; ".join(f"{k[:40]} {t:.2f} ms/{c:g}"
+                                    for k, (t, c) in top)
+
+
+def olmoe_serve_path(dev, all_wrappers):
+    """olmoe-1b-7b at its published width and depth (16 layers,
+    6,919,100,416 parameters) through the serving launcher,
+    `launch.serve.main` (16 requests, batch 8, max_seq 2048, 32 new
+    tokens each): prefills and decode ticks timed between synchronizes,
+    every launch count 0 at the start.  Returns {LM kernel: launches}."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("olmoe-1b-7b")
+    wrappers = kernel_wrappers()
+    fresh_card(all_wrappers)
+    prefill = Stopwatch(models.prefill, check=lambda out: bool(
+        torch.isfinite(out[0][:, -1]).all()))
+    step = Stopwatch(models.decode_step,
+                     check=lambda out: bool(torch.isfinite(out[0]).all()))
+    models.prefill, models.decode_step = prefill, step
+    try:
+        t0 = time.perf_counter()
+        done = serve.main(OLMOE_SERVE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        models.prefill, models.decode_step = prefill.fn, step.fn
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n_prefill, ticks = len(prefill.calls), len(step.calls)
+    assert len(done) == n_prefill == 16, (len(done), n_prefill)
+    want = expected_launches(cfg, n_prefill, ticks)
+    assert launches == want, (launches, want)
+    decode_toks = sum(len(r.generated) for r in done) - n_prefill
+    tick_ms = step.seconds * 1e3 / ticks
+    cast = decode_cast_bytes(cfg)
+    floor_ms = cast / HBM_BYTES_PER_S * 1e3
+    print(f"main path olmoe-1b-7b serve (launch.serve, {cfg.n_layers} "
+          f"layers, {models.param_count(cfg):,} parameters): "
+          f"{' '.join(OLMOE_SERVE[2:])} | {wall:.2f} s in all (weights "
+          f"drawn on the card) | {n_prefill} prefills "
+          f"{prefill.seconds * 1e3:.1f} ms | {ticks} decode ticks, "
+          f"{decode_toks} tokens: {tick_ms:.2f} ms a tick against the "
+          f"weight casts' floor {floor_ms:.2f} ms ({cast / 1e9:.2f} GB a "
+          f"tick at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) | launches "
+          f"flash_attention_bhsd {launches['flash_attention_bhsd']} "
+          f"({cfg.n_layers} layers x {n_prefill} prefills) | peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # where a tick's time goes: 5 ticks of 8 slots on the launcher's
+    # weights, timed, then traced on the card
+    from repro_torch.launch.train import initial_params
+    params = initial_params(cfg, dev)
+    state = models.init_decode_state(cfg, 8, 2048, dev)
+    toks = torch.arange(3, 11, dtype=torch.int32, device=dev)
+    pos = torch.full((8,), 100, dtype=torch.int32, device=dev)
+    models.decode_step(cfg, params, state, toks, pos)
+    host_ms, busy, top = profile_calls(
+        lambda i: models.decode_step(cfg, params, state, toks, pos), 5)
+    print(f"  a decode tick of 8 slots again: {host_ms:.2f} ms on the host "
+          f"clock, device busy {busy:.2f} ms ({idle_share(busy, host_ms)}"
+          f"); top: {top}")
+    del params, state
+    return launches
+
+
+def warm_then_time(call):
+    """call("auto") (the kernels) and call("ref") (the plain path) once
+    each to warm both (cuBLAS's handles, the first launches), then each
+    again between synchronizes: ({impl: output}, {impl: ms})."""
+    for impl in ("auto", "ref"):
+        call(impl)
+    out, ms = {}, {}
+    for impl in ("auto", "ref"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[impl] = call(impl)
+        torch.cuda.synchronize()
+        ms[impl] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def hubert_path(dev, all_wrappers):
+    """hubert-xlarge at its published width and depth (48 layers,
+    1,259,705,600 parameters), the launchers' weights: one encoder
+    forward of 4 clips of 1,500 frames (30 s at 20 ms a frame) through
+    `models.forward(impl="auto")` under no_grad, every launch count 0 at
+    the start, held against impl="ref" on the card within 8 bf16 ulps of
+    the largest logit (each timed after a warm-up call); then HUBERT_TRAIN_STEPS steps of
+    `make_train_step` (AdamW, remat, the plain paths) on the per-frame
+    labels of `SyntheticTokenDataset`, as `launch.train` runs them.
+    Gates: the loss finite; AdamW's moments finite, m nonzero in every
+    leaf but the untied `embed` (in no path of the loss: its moments stay
+    0), the count the steps'.  Then reduced hubert's steps card == CPU.
+    Returns {LM kernel: launches} of the forward."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models.compare import bf16_ulps
+    from repro_torch.optim import adamw_init
+    from repro_torch.pytree import tree_flatten
+    from repro_torch.training import make_train_step
+
+    cfg = get_config("hubert-xlarge")
+    B, S = FLASH_HUBERT[:2]
+    wrappers = kernel_wrappers()
+    fresh_card(all_wrappers)
+    params = initial_params(cfg, dev)
+    frames = {"frame_embeddings": torch.randn(
+        (B, S, cfg.d_model), generator=torch.Generator(dev).manual_seed(3),
+        device=dev)}
+    with torch.no_grad():
+        out, ms = warm_then_time(lambda impl: models.forward(
+            cfg, params, frames, impl=impl)[0])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = expected_launches(cfg, 0, 0, forwards=2)     # warm-up, timed
+    assert launches == want, (launches, want)
+    got, ref = out["auto"].float(), out["ref"].float()
+    assert got.shape == (B, S, cfg.vocab_size) and bool(
+        torch.isfinite(got).all())
+    atol = bf16_ulps(ref, 8)
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+    err = float((got - ref).abs().max()) / atol * 8
+    del out, got, ref
+    print(f"main path hubert-xlarge encoder: {cfg.n_layers} layers, "
+          f"{models.param_count(cfg):,} parameters | forward of {B} x "
+          f"{S} frames {ms['auto']:.1f} ms through the kernel, "
+          f"{ms['ref']:.1f} ms plain (after a warm-up call each) | logits "
+          f"max |err| "
+          f"{err:.2f} bf16 ulps of the largest (bound 8) | launches "
+          f"flash_attention_bhsd {launches['flash_attention_bhsd']}")
+
+    step_fn = make_train_step(cfg, train_config())
+    ds = SyntheticTokenDataset(cfg, DataConfig(seq_len=S, global_batch=B))
+    opt = adamw_init(params)
+    losses, step_ms = [], []
+    for s in range(HUBERT_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(
+            params, opt, torch.tensor(s, dtype=torch.int32, device=dev),
+            batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    assert all(math.isfinite(v) for v in losses), losses
+    assert int(opt["count"]) == HUBERT_TRAIN_STEPS
+    for key in ("m", "v"):
+        assert all(bool(torch.isfinite(x).all())
+                   for x in tree_flatten(opt[key])[0]), key
+        assert not bool(opt[key]["embed"].any()), key
+    zero_m = [n for n, x in opt["m"]["block"].items() if not bool(x.any())]
+    assert not zero_m and bool(opt["m"]["lm_head"].any()), zero_m
+    print(f"main path hubert-xlarge train: {HUBERT_TRAIN_STEPS} steps of "
+          f"{B} x {S} frames (AdamW lr {TRAIN_LR:g}, {TRAIN_WARMUP} "
+          f"warm-up steps, remat) | "
+          f"{', '.join(f'{v:.1f}' for v in step_ms)} ms a step | loss "
+          f"{[round(v, 4) for v in losses]} | AdamW m nonzero in every "
+          f"leaf but the untied embed (0, as its v) | peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params, opt, step_fn, metrics
+    hubert_train_card_vs_cpu(dev)
+    return launches
+
+
+def hubert_train_card_vs_cpu(dev):
+    """Reduced hubert, 2 steps of `make_train_step` (the path's config)
+    on 4 x 32 frames on the card and on the CPU from the same weights
+    (drawn on the CPU): AdamW's m within M_REL_CARD_CPU of each leaf's
+    largest, as `training_card_vs_cpu` holds smollm's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.launch.train import initial_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.pytree import tree_map
+    from repro_torch.training import make_train_step
+    cfg = reduced(get_config("hubert-xlarge"))
+    host = initial_params(cfg, torch.device("cpu"))
+    ds = SyntheticTokenDataset(cfg, DataConfig(seq_len=32, global_batch=4))
+    opts = {}
+    for d in ("cpu", str(dev)):
+        params = tree_map(lambda x: x.to(d), host)
+        opt = adamw_init(params)
+        step_fn = make_train_step(cfg, train_config())
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(d)
+                     for k, v in ds.batch(s).items()}
+            params, opt, _ = step_fn(
+                params, opt, torch.tensor(s, dtype=torch.int32, device=d),
+                batch)
+        opts[d] = tree_map(lambda x: x.cpu(), opt)
+    m_err = leaf_rel_err(opts[str(dev)]["m"], opts["cpu"]["m"])
+    v_err = leaf_rel_err(opts[str(dev)]["v"], opts["cpu"]["v"])
+    assert m_err <= M_REL_CARD_CPU, m_err
+    print(f"  hubert train card == CPU: reduced, 2 steps of 4 x 32 frames: "
+          f"AdamW m within {m_err:.4g} of each leaf's largest (limit "
+          f"{M_REL_CARD_CPU}), v within {v_err:.4g}")
+
+
+def llava_path(dev, all_wrappers):
+    """llava-next-mistral-7b at its published width and depth (32 layers,
+    7,241,732,096 parameters), the launchers' weights: `models.prefill`
+    of 2,304 patch embeddings (n_image_patches) and 2,048 text tokens
+    (4,352 positions under the 4,096-token window, so the window masks),
+    every launch count 0 at the start, held against impl="ref" on the
+    card within 8 bf16 ulps of the largest logit (each timed after a
+    warm-up call); then LLAVA_DECODE
+    greedy `decode_step`s through the rolling cache (W = 4,096: the
+    prefill's tail wraps the slots, and each step overwrites the oldest).
+    Returns {LM kernel: launches}."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models.compare import bf16_ulps
+
+    cfg = get_config("llava-next-mistral-7b")
+    wrappers = kernel_wrappers()
+    fresh_card(all_wrappers)
+    params = initial_params(cfg, dev)
+    g = torch.Generator(dev).manual_seed(4)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, LLAVA_TEXT),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32),
+             "patch_embeddings": torch.randn(
+                 (1, cfg.n_image_patches, cfg.d_model), generator=g,
+                 device=dev)}
+    S = cfg.n_image_patches + LLAVA_TEXT
+    assert (1, S) + FLASH_LLAVA[2:] == FLASH_LLAVA and S > LLAVA_WINDOW
+    cache = S + LLAVA_DECODE
+    with torch.no_grad():
+        out, ms = warm_then_time(lambda impl: models.prefill(
+            cfg, params, batch, cache, impl=impl))
+        launches = {k: w.launches for k, w in wrappers.items()}
+        got, state, _ = out["auto"]
+        ref = out["ref"][0]
+        assert got.shape == (1, S, cfg.vocab_size)
+        atol = bf16_ulps(ref, 8)
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=0)
+        err = float((got.float() - ref.float()).abs().max()) / atol * 8
+        assert state["k"].shape[2] == LLAVA_WINDOW
+        tok = got[:, -1].argmax(-1).int()
+        del out, ref
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LLAVA_DECODE):
+            pos = torch.full((1,), S + t, dtype=torch.int32, device=dev)
+            logits, state = models.decode_step(cfg, params, state, tok, pos)
+            assert bool(torch.isfinite(logits).all()), t
+            tok = logits.argmax(-1).int()
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) * 1e3 / LLAVA_DECODE
+        pos = torch.full((1,), cache, dtype=torch.int32, device=dev)
+        host_ms, busy, top = profile_calls(
+            lambda i: models.decode_step(cfg, params, state, tok, pos), 3)
+    held = sorted(state["pos"][0, 0].tolist())
+    assert held == list(range(cache - LLAVA_WINDOW, cache)), held[:4]
+    after = {k: w.launches for k, w in wrappers.items()}
+    want = expected_launches(cfg, 2, LLAVA_DECODE)      # warm-up, timed
+    assert launches == after == want, (launches, after, want)
+    print(f"main path llava-next-mistral-7b: {cfg.n_layers} layers, "
+          f"{models.param_count(cfg):,} parameters | prefill of "
+          f"{cfg.n_image_patches} patches + {LLAVA_TEXT} tokens (window "
+          f"{LLAVA_WINDOW}) {ms['auto']:.1f} ms through the kernel, "
+          f"{ms['ref']:.1f} ms plain (after a warm-up call each) | logits "
+          f"max |err| "
+          f"{err:.2f} bf16 ulps of the largest (bound 8) | "
+          f"{LLAVA_DECODE} greedy decode steps {tick_ms:.2f} ms each, the "
+          f"cache holding positions {held[0]}..{held[-1]} | launches "
+          f"flash_attention_bhsd {launches['flash_attention_bhsd']} | peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB")
+    print(f"  a decode step again: {host_ms:.2f} ms on the host clock, "
+          f"device busy {busy:.2f} ms ({idle_share(busy, host_ms)}); top: "
+          f"{top}")
+    del params, state
+    return launches
+
+
+def dbrx_path(dev, all_wrappers):
+    """dbrx-132b at its published width cut to DBRX_DEPTH layers (see
+    DBRX_DEPTH), the launchers' weights: `models.prefill` of DBRX_BATCH
+    prompts of DBRX_PROMPT tokens and 4 decode steps, through the kernel
+    (impl="auto", every launch count 0 at the start) and the plain path
+    (impl="ref") on the card, each prefill timed after a warm-up call.
+    MoE routing compared call by call (`compare.routing_flips`: the
+    router inputs held within 8 bf16 ulps up to the first call with a
+    flip, layer 0's prefill call at least, and that call's flips within
+    8 bf16 ulps of its largest router logit); the logits within 8 bf16
+    ulps of the largest when no token flipped (a flip changes the token's
+    FFN output, and attention carries it on).  Returns {LM kernel:
+    launches}."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models.compare import (RouterTap, bf16_ulps,
+                                            family_batch, routes,
+                                            routing_flips)
+
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=DBRX_DEPTH)
+    wrappers = kernel_wrappers()
+    fresh_card(all_wrappers)
+    params = initial_params(cfg, dev)
+    batch = family_batch(cfg, DBRX_BATCH, DBRX_PROMPT, 6, dev)
+    nxt = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, (DBRX_BATCH, 4)).astype(np.int32)).to(dev)
+    out, taps, ms = {}, {}, {}
+    with torch.no_grad():
+        for impl in ("auto", "ref"):                        # warm-up
+            models.prefill(cfg, params, batch, 2 * DBRX_PROMPT, impl=impl)
+        for impl in ("auto", "ref"):
+            with RouterTap() as tap:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, st, aux = models.prefill(cfg, params, batch,
+                                             2 * DBRX_PROMPT, impl=impl)
+                torch.cuda.synchronize()
+                ms[impl] = (time.perf_counter() - t0) * 1e3
+                logits = [lg[:, -1]]
+                for t in range(4):
+                    pos = torch.full((DBRX_BATCH,), DBRX_PROMPT + t,
+                                     dtype=torch.int32, device=dev)
+                    d, st = models.decode_step(cfg, params, st, nxt[:, t],
+                                               pos)
+                    logits.append(d)
+            if impl == "auto":
+                launches = {k: w.launches for k, w in wrappers.items()}
+                dropped = float(aux["dropped_frac"])
+            out[impl] = [x.float() for x in logits]
+            taps[impl] = routes(tap.calls)
+            del lg, st, tap
+    want = expected_launches(cfg, 2, 0)                 # warm-up, timed
+    assert launches == want, (launches, want)
+    report = routing_flips(taps["auto"], taps["ref"])
+    worst = 0.0
+    for a, b in zip(out["ref"], out["auto"]):
+        assert bool(torch.isfinite(b).all())
+        atol = bf16_ulps(a, 8)
+        if not report.flips:
+            torch.testing.assert_close(b, a, atol=atol, rtol=0)
+        worst = max(worst, float((a - b).abs().max()) / atol * 8)
+    print(f"main path dbrx-132b: {DBRX_DEPTH} layers, cut from "
+          f"{full.n_layers} (published widths; {full.n_layers} layers "
+          f"would need {models.param_count(full) * 4 / 1e9:.0f} GB), "
+          f"{models.param_count(cfg):,} parameters | prefill of "
+          f"{DBRX_BATCH} x {DBRX_PROMPT} tokens {ms['auto']:.1f} ms "
+          f"through the kernel, {ms['ref']:.1f} ms plain (after a warm-up "
+          f"call each), dropped_frac {dropped:.4f} | prefill + 4 decode "
+          f"steps, kernel vs plain: {report.note()} | logits max |err| "
+          f"{worst:.2f} bf16 ulps of the largest (bound 8"
+          f"{', not held: tokens flipped' if report.flips else ''}) | "
+          f"launches flash_attention_bhsd "
+          f"{launches['flash_attention_bhsd']} | peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params, taps, out
+    return launches
+
+
+def family_paths(dev, all_wrappers, lap=print):
+    """The MoE, audio and VLM families' full-width paths after the LM
+    federation paths: olmoe served at full depth by `launch.serve`,
+    hubert, llava, dbrx, each followed by lap(its name); returns the
+    flash kernel's launches in them."""
+    total = 0
+    for path in (olmoe_serve_path, hubert_path, llava_path, dbrx_path):
+        total += path(dev, all_wrappers)["flash_attention_bhsd"]
+        lap(path.__name__)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
 
 TRAIN_ARCH = "smollm-360m"
 TRAIN_P, TRAIN_LOCAL_STEPS = 4, 2
@@ -3424,7 +4015,7 @@ def training_path(dev, kernels, fed_kwargs, totals):
               f"{np.mean(flush.calls[1:]) * 1e3:.1f} ms of a round: "
               f"{TRAIN_P + 1} fingerprints of {n * 4 / 1e9:.2f} GB on the "
               f"host) | the profiled round {ms[-1]:.1f} ms, device busy "
-              f"{busy:.1f} ms (idle {1 - busy / ms[-1]:.1%}) | peak "
+              f"{busy:.1f} ms ({idle_share(busy, ms[-1])}) | peak "
               f"{peak:.2f} GiB | loss a round "
               f"{[round(v, 4) for v in losses]} | rows within {spread:.2g}, "
               f"moments apart by up to {m_spread:.3g} | launches {counts}")
@@ -3569,6 +4160,41 @@ def kernel_turns(parent):
     return 0
 
 
+def families_alone(dev, t_start):
+    """`--families`: the MoE, audio and VLM families' phases alone (after
+    the build): their flash shapes against the plain version, the card
+    against the CPU, olmoe's federation path, the full-width paths and
+    the flash kernel's times."""
+    check_flash(dev, FAMILY_FLASH_CASES)
+    lm_card_vs_cpu(dev, "olmoe-1b-7b")
+    for arch, compute in FAMILY_CARD_VS_CPU:
+        lm_card_vs_cpu(dev, arch, compute)
+    wrappers = list(kernel_wrappers().values())
+    arch, depth, lr = LM_PATHS[-1]
+    flash = lm_main_path(dev, arch, depth, lr, wrappers)[
+        "flash_attention_bhsd"]
+    flash += family_paths(dev, wrappers)
+    print(json.dumps(time_flash(dev)[1]))
+    print(f"families alone: flash launches {flash}; took "
+          f"{time.perf_counter() - t_start:.1f} s after start-up")
+    return 0
+
+
+def flash_times_alone(dev):
+    """`--time-flash`: `time_flash` in a fresh process, then hubert's
+    shape again after the caching allocator has held 60 GiB (as it does
+    after the full-width paths): whether SDPA's time there depends on
+    the process's state."""
+    print(json.dumps(time_flash(dev)[1]))
+    held = [torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+            for _ in range(60)]
+    del held
+    print(f"after 60 GiB held and freed: reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB")
+    time_flash_shape(dev, FLASH_HUBERT, "hubert", causal=False)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3594,6 +4220,9 @@ def main() -> int:
           f"federation's local step turns TF32 off and cuDNN's "
           f"deterministic algorithms on inside itself)")
     t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
     if "--depth-probe" in args:
         depth_probe(dev)
         return 0
@@ -3625,6 +4254,8 @@ def main() -> int:
         hashes = print_sass_hashes(built["secure_agg"][0], tag)
         assert hashes is None or hashes >= 120 + 16, (tag, hashes)
 
+    lap("build")
+
     # ---- each kernel against its plain version -----------------------
     kernels = secure_agg_kernels(dev)
 
@@ -3640,6 +4271,11 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s after start-up")
         return 0
 
+    if "--families" in args:
+        return families_alone(dev, t_start)
+    if "--time-flash" in args:
+        return flash_times_alone(dev)
+
     check_secure_agg(kernels, dev)
     check_secure_agg_wide(kernels, dev)
     legacy = legacy_kernels()
@@ -3647,6 +4283,7 @@ def main() -> int:
     flash_err, flash_err32 = check_flash(dev)
     wkv6_err = check_wkv6(dev)
     ssm_err = check_ssm(dev)
+    lap("kernel checks")
 
     # ---- the card against the CPU, small -----------------------------
     cnn_card_vs_cpu(dev, fed_kwargs)
@@ -3654,8 +4291,11 @@ def main() -> int:
     merge_card_vs_cpu(dev)
     for arch, _, _ in LM_PATHS:
         lm_card_vs_cpu(dev, arch)
+    for arch, compute in FAMILY_CARD_VS_CPU:
+        lm_card_vs_cpu(dev, arch, compute)
     for cfg in (TINY_SERVE, TINY_SERVE_SSM):
         hot_swap_on_card(dev, cfg)
+    lap("card vs CPU")
 
     # ---- the main paths: full width, counts from 0 -------------------
     lm_kernels = kernel_wrappers()
@@ -3664,15 +4304,25 @@ def main() -> int:
     totals = {name: 0 for name in kernels}
     totals_wide = {name: 0 for name in kernels}
     cnn_main_path(dev, kernels, fed_kwargs, totals)
+    lap("cnn_main_path")
     fault_main_path(dev, kernels, fed_kwargs, totals)
+    lap("fault_main_path")
     merges_main_path(dev, kernels, totals)
+    lap("merges_main_path")
     fleet_main_path(dev, kernels, fed_kwargs, totals_wide)
+    lap("fleet_main_path")
     determinism_path(dev, fed_kwargs)
+    lap("determinism_path")
     recovery_main_path(dev, kernels, fed_kwargs, totals)
+    lap("recovery_main_path")
     fleet_recovery_path(dev, kernels, fed_kwargs, totals_wide)
+    lap("fleet_recovery_path")
     placement_path(dev, kernels, totals)
+    lap("placement_path")
     device_tier_path(dev, kernels)
+    lap("device_tier_path")
     training_path(dev, kernels, fed_kwargs, totals)
+    lap("training_path")
     for name, n in list(totals.items()) + [
             (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"
@@ -3681,6 +4331,7 @@ def main() -> int:
                       ("masked_rolling_update", "masked_field_wsum")])
     for name, n in legacy_launches.items():
         assert n == len(LEGACY_POINTS), f"{name}: {n} launches"
+    lap("legacy_main_path")
 
     # ---- timing at the main paths' shapes ----------------------------
     rows = time_secure_agg(dev, kernels, totals)
@@ -3690,20 +4341,26 @@ def main() -> int:
         row.update(extra)
     rows += time_secure_agg_wide(dev, kernels, totals_wide)
     rows += time_legacy(dev, legacy, legacy_launches)
-    flash = time_flash(dev)
+    lap("MPC and DP kernel timing")
+    flash, flash_families = time_flash(dev)
     timed = {"flash_attention_bhsd": flash[torch.bfloat16]}
     for name, prefill, decode in (("wkv6_bthd", WKV6_TIMED, WKV6_DECODE),
                                   ("ssm_scan_btd", SSM_TIMED, SSM_DECODE)):
         timed[name] = time_recurrent(dev, name, prefill) + (None,)
         time_recurrent(dev, name, decode)
+    lap("LM kernel timing")
 
     lm_launches = dict.fromkeys(lm_kernels, 0)
     for arch, depth, lr in LM_PATHS:
         for name, n in lm_main_path(dev, arch, depth, lr, wrappers).items():
             lm_launches[name] += n
+        lap(f"lm_main_path {arch}")
     for name, n in serving_reboot_path(dev, wrappers).items():
         lm_launches[name] += n
+    lap("serving_reboot_path")
+    lm_launches["flash_attention_bhsd"] += family_paths(dev, wrappers, lap)
     fp32_launches = fp32_prefill_path(dev, wrappers)
+    lap("fp32_prefill_path")
     assert fp32_launches > 0, "the fp32 flash kernel never launched"
     errs = {"flash_attention_bhsd": flash_err, "wkv6_bthd": wkv6_err,
             "ssm_scan_btd": ssm_err}
@@ -3715,6 +4372,8 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
+    next(r for r in rows if r["name"] == "flash_attention_bhsd").update(
+        flash_families)
     # the fp32 kernel, launched by the fp32-compute prefill
     k_ms, p_ms, b_ms, b_by, lib_ms = flash[torch.float32]
     source, replaces = LM_KERNEL_SOURCES["flash_attention_bhsd"]

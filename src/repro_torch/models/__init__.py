@@ -1,7 +1,8 @@
 """Model zoo dispatch: family -> implementation module.
 
-The dense transformer family (`transformer.py`), rwkv6 (``ssm``,
-`rwkv6.py`) and hymba (``hybrid``, `hymba.py`) are ported.  `stigma_cnn.py`
+The transformer families (`transformer.py`: dense, MoE, encoder-only
+audio and VLM), rwkv6 (``ssm``, `rwkv6.py`) and hymba (``hybrid``,
+`hymba.py`) are ported.  `stigma_cnn.py`
 is the paper's CNN, driven by `chaos.harness.CNNFederation`.
 """
 from __future__ import annotations

@@ -10,8 +10,10 @@ Weights are kept in ``PARAM_DTYPE`` (fp32) and cast to the activations'
 ``COMPUTE_DTYPE`` (bf16) at each matmul, as in the reference.  Attention
 goes to the hand-written Hopper flash kernel on CUDA tensors
 (``impl="auto"``, ``"pallas"`` or ``"fused"``); one-token decode
-attention is plain tensor code, as in the reference.  `moe_ffn` is not
-ported yet.
+attention is plain tensor code, as in the reference.  The MoE FFN's
+routing (top-k, a stable sort, the capacity scatter and the combine) is
+plain tensor code too, batched over the token groups; the reference runs
+it outside any Pallas kernel as well.
 """
 from __future__ import annotations
 
@@ -393,3 +395,97 @@ def cache_update(k_cache, v_cache, cache_positions, k_new, v_new, pos):
 def ffn_swiglu(x, wi_gate, wi_up, wo):
     h = swiglu(x @ wi_gate.to(x.dtype), x @ wi_up.to(x.dtype))
     return h @ wo.to(x.dtype)
+
+
+# ======================================================================
+# MoE FFN: routing + capacity dispatch, expert products, combine
+# ======================================================================
+def _moe_dispatch(x, router_w, *, top_k: int, capacity: int):
+    """Routing and capacity scatter of every token group at once (the
+    reference's per-group `_moe_dispatch_one`, batched over G).
+    x: (G, T, d).  Returns (buf (G, E, C, d), idx, dest, order, keep,
+    gate, aux): idx (G, T, k) each token's experts; order (G, T*k) the
+    stable sort of the flat expert ids; dest (G, T*k) each sorted
+    assignment's buffer row, E*C where it is over its expert's capacity
+    (keep False: dropped); gate (G, T, k) the renormalised top-k
+    probabilities; aux's entries are (G,).
+
+    Out-of-place ops that `torch.func.vmap` batches (gather, scatter,
+    cumsum), so the federation's ``vmap(grad)`` runs through it.  The
+    dropped assignments all write row E*C, which is sliced off, so its
+    value and its gradient (0) never reach an output."""
+    G, T, d = x.shape
+    E, C = router_w.shape[-1], capacity
+    Tk = T * top_k
+
+    logits = x.float() @ router_w.float()                 # (G, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k puts the lower index first on a tie; torch.topk promises
+    # no order there (fp32 ties between router probabilities: not seen)
+    gate, idx = torch.topk(probs, top_k, dim=-1)          # (G, T, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    fidx = idx.reshape(G, Tk)
+    order = torch.argsort(fidx, dim=-1, stable=True)
+    sorted_e = torch.gather(fidx, 1, order)
+    counts = (fidx[..., None] == torch.arange(
+        E, device=x.device)).sum(1)                       # (G, E)
+    seg_start = torch.cumsum(counts, -1) - counts         # = searchsorted
+    pos_in_e = (torch.arange(Tk, device=x.device)
+                - torch.gather(seg_start, 1, sorted_e))
+    keep = pos_in_e < C
+    dest = torch.where(keep, sorted_e * C + pos_in_e, E * C)
+
+    tok_of = (order // top_k)[..., None].expand(G, Tk, d)
+    rows = torch.gather(x, 1, tok_of)
+    buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype,
+                      device=x.device).scatter(
+        1, dest[..., None].expand(G, Tk, d), rows)
+    buf = buf[:, :-1].reshape(G, E, C, d)
+
+    me = probs.mean(dim=1)                                # (G, E)
+    ce = counts.float() / Tk
+    aux = {"load_balance": E * (me * ce).sum(-1),
+           "router_z": torch.logsumexp(logits, dim=-1).square().mean(-1),
+           "dropped_frac": 1.0 - keep.float().mean(-1)}
+    return buf, idx, dest, order, keep, gate, aux
+
+
+def _moe_combine(eo, dest, order, gate, *, top_k: int):
+    """Expert outputs back to token order, gate-weighted over the k
+    choices (the reference's `_moe_combine_one`, batched over G).
+    eo: (G, E, C, d) -> (G, T, d); a dropped assignment reads a zero row."""
+    G, E, C, d = eo.shape
+    Tk = order.shape[1]
+    eo_flat = torch.cat([eo.reshape(G, E * C, d),
+                         eo.new_zeros((G, 1, d))], 1)
+    out_sorted = torch.gather(eo_flat, 1, dest[..., None].expand(G, Tk, d))
+    out_perm = torch.zeros_like(out_sorted).scatter(
+        1, order[..., None].expand(G, Tk, d), out_sorted)
+    return (out_perm.reshape(G, Tk // top_k, top_k, d)
+            * gate[..., None].to(eo.dtype)).sum(2)
+
+
+def moe_capacity(tokens_per_group: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Rows an expert takes a group: ``max(ceil(Tg k cf / E), k)``."""
+    return max(int(np.ceil(tokens_per_group * top_k * capacity_factor
+                            / n_experts)), top_k)
+
+
+def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+            capacity_factor: float = 1.25):
+    """Group-local MoE: x (G, Tg, d); groups are dispatch-independent.
+    Returns (out (G, Tg, d), aux), aux's entries averaged over the groups.
+    The expert products run on the stacked (G, E, C, *) buffers, the
+    expert weights cast to the activations' dtype at each layer, as in
+    the reference."""
+    E = router_w.shape[-1]
+    C = moe_capacity(x.shape[1], E, top_k, capacity_factor)
+    buf, _, dest, order, _, gate, aux = _moe_dispatch(
+        x, router_w, top_k=top_k, capacity=C)
+    h = torch.einsum("gecd,edf->gecf", buf, w_gate.to(x.dtype))
+    u = torch.einsum("gecd,edf->gecf", buf, w_up.to(x.dtype))
+    eo = torch.einsum("gecf,efd->gecd", swiglu(h, u), w_down.to(x.dtype))
+    out = _moe_combine(eo, dest, order, gate, top_k=top_k)
+    return out, {k: v.mean() for k, v in aux.items()}

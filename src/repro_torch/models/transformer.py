@@ -1,11 +1,15 @@
-"""Dense decoder-only transformer backbone (chatglm3, smollm, qwen3,
-deepseek: GQA, optional qk-norm, full or half rope, optional sliding
-window) in PyTorch.
+"""Dense / MoE / encoder-only / VLM transformer backbone in PyTorch.
+
+One implementation covers chatglm3, smollm, qwen3, deepseek (dense GQA,
+optional qk-norm, full or half rope, optional sliding window), olmoe,
+dbrx (MoE FFN: top-k routing with a capacity per expert), hubert
+(encoder-only audio: no rope, non-causal attention, precomputed frame
+embeddings in place of the conv front end) and llava (VLM: precomputed
+patch embeddings ahead of the text in place of the vision tower), as
+the reference does.
 
 Layers are stacked on a leading ``layers`` dim, as in the reference, and
-run as a Python loop where the reference runs ``lax.scan``.  MoE FFNs,
-the audio and VLM front ends and encoder-only models are not ported yet
-(ROADMAP queue A item 25) and raise ``NotImplementedError``.
+run as a Python loop where the reference runs ``lax.scan``.
 
 Entry points:
   forward(cfg, params, batch)                -> logits, aux      (train/prefill)
@@ -24,17 +28,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
-_TODO = "not ported to PyTorch yet (ROADMAP queue A item 25)"
-
-
-def _dense_text_only(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE FFN ({cfg.name}): {_TODO}")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.modality} front end ({cfg.name}): "
-                                  f"{_TODO}")
-    if cfg.encoder_only:
-        raise NotImplementedError(f"encoder-only model ({cfg.name}): {_TODO}")
 
 
 # ======================================================================
@@ -95,8 +88,9 @@ def _attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.qk_norm:
         q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
-    k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_style)
+    if not cfg.encoder_only:          # the encoder (hubert) has no rope
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
+        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_style)
     out = L.attention(q, k, v, causal=cfg.causal, window=cfg.attn_window,
                       impl=impl)
     out = out.reshape(B, S, hq * hd)
@@ -107,8 +101,16 @@ def _attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _ffn_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    _dense_text_only(cfg)
+    B, S, d = x.shape
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if cfg.is_moe:
+        # groups: one per sequence while training / prefilling; the whole
+        # batch (empty engine slots too) is one group for 1-token decode
+        grouped = h if S > 1 else h.reshape(1, B, d)
+        out, aux = L.moe_ffn(grouped, p["router"], p["w_gate"],
+                             p["w_up"], p["w_down"], top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+        return x + out.reshape(B, S, d), aux
     out = L.ffn_swiglu(h, p["wi_gate"], p["wi_up"], p["wo_ffn"])
     return x + out, L.zero_aux(x.device)
 
@@ -129,14 +131,26 @@ def _mean_aux(auxs):
 
 
 # ======================================================================
-# Embedding (text)
+# Embedding (text / audio stub / vlm stub)
 # ======================================================================
 def embed_inputs(cfg: ModelConfig, params: Params,
                  batch: Dict[str, torch.Tensor]):
-    """Returns (x (B,S,d) in COMPUTE_DTYPE, positions (B,S) int32) for
-    batch["tokens"] (B,S)."""
-    _dense_text_only(cfg)
-    x = F.embedding(batch["tokens"], params["embed"]).to(L.COMPUTE_DTYPE)
+    """Returns (x (B,S,d) in COMPUTE_DTYPE, positions (B,S) int32).
+
+    text : batch["tokens"] (B,S) int
+    audio: batch["frame_embeddings"] (B,S,d), the conv front end's output
+           (a stub: the caller supplies it)
+    vlm  : batch["tokens"] (B,S_text) + batch["patch_embeddings"] (B,P,d)
+           concatenated [patches; text], positions over the whole of it
+    """
+    if cfg.modality == "audio":
+        x = batch["frame_embeddings"].to(L.COMPUTE_DTYPE)
+    elif cfg.modality == "vlm":
+        tok = F.embedding(batch["tokens"], params["embed"])
+        x = torch.cat([batch["patch_embeddings"].to(L.COMPUTE_DTYPE),
+                       tok.to(L.COMPUTE_DTYPE)], dim=1)
+    else:
+        x = F.embedding(batch["tokens"], params["embed"]).to(L.COMPUTE_DTYPE)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -235,7 +249,6 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """tokens: (B,) int; pos: (B,) absolute position of the new token.
     Returns (logits (B,V), new state); `state` is not written."""
-    _dense_text_only(cfg)
     B = tokens.shape[0]
     x = F.embedding(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
     positions = pos[:, None]

@@ -571,6 +571,15 @@ FLASH_CASES = [
     (1, 1152, 25, 5, 64, torch.float32, True, 1024, ""),
     (2, 190, 8, 2, 128, torch.float32, True, 0, "qkv"),
     (2, 190, 8, 2, 64, torch.float32, True, 0, "odd"),
+    # the families' prefill at full width: hubert-xlarge's encoder over 4
+    # clips of 1,500 frames (non-causal, hd 80), llava-next's 2,304
+    # patches and 2,048 tokens under its 4,096-token window, olmoe's
+    # served prompts (group 1, up to 1,024 tokens) and dbrx's 2 prompts
+    # of 1,024 tokens (group 6)
+    (4, 1500, 16, 16, 80, torch.bfloat16, False, 0, ""),
+    (1, 4352, 32, 8, 128, torch.bfloat16, True, 4096, ""),
+    (1, 1000, 16, 16, 128, torch.bfloat16, True, 0, ""),
+    (2, 1024, 48, 8, 128, torch.bfloat16, True, 0, ""),
 ]
 
 
@@ -1112,3 +1121,120 @@ def test_remat_under_vmap_grad_on_card(cuda, arch):
                     tree_flatten(grads[True])[0]):
         assert torch.isfinite(a).all()
         assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# the MoE, audio and VLM families, reduced: the card against the CPU
+
+def _family_run(cfg, params, batch, dev):
+    """Prefill (cache 128) and 2 decode steps, or an encoder's forward:
+    the logits, on `dev`."""
+    from repro_torch import models
+    from repro_torch.pytree import tree_map
+    p = tree_map(lambda x: x.to(dev), params)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    if cfg.encoder_only:
+        return [models.forward(cfg, p, b)[0].float().cpu()]
+    lg, st, _ = models.prefill(cfg, p, b, 128)
+    out = [lg.float().cpu()]
+    S = lg.shape[1]
+    for t in range(2):
+        pos = torch.full((2,), S + t, dtype=torch.int32, device=dev)
+        d, st = models.decode_step(cfg, p, st, torch.full(
+            (2,), 5 + t, dtype=torch.int32, device=dev), pos)
+        out.append(d.float().cpu())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["fp32", "bf16"])
+def test_moe_routing_on_card_matches_cpu(cuda, monkeypatch, compute):
+    """Reduced olmoe, prefill and 2 decode steps: in fp32 compute every
+    token chooses the same experts on the card as on the CPU and the
+    logits agree within 1e-4 of the largest; in bf16 (cuBLAS and the
+    flash kernel round in other places than the CPU) a token may choose
+    another expert only as `compare.routing_flips` allows (until the
+    first flip the router inputs agree within 8 bf16 ulps, and that
+    call's flips are within 8 bf16 ulps of its largest router logit),
+    and the logits agree within 8 bf16 ulps of the largest."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import layers
+    from repro_torch.models.compare import (RouterTap, bf16_ulps,
+                                            family_batch, routes,
+                                            routing_flips)
+    if compute == "fp32":
+        monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduced(ARCHS["olmoe-1b-7b"])
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = family_batch(cfg, 2, 61, 0)
+    out, taps = {}, {}
+    for dev in ("cpu", cuda):
+        with RouterTap() as tap:
+            out[str(dev)] = _family_run(cfg, params, batch, dev)
+        taps[str(dev)] = routes(tap.calls)
+    assert len(taps["cpu"]) == 3 * cfg.n_layers   # a prefill, 2 decodes
+    report = routing_flips(taps[str(cuda)], taps["cpu"])
+    if compute == "fp32":
+        assert not report.flips, report.flips
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        atol = (1e-4 * float(b.abs().max()) if compute == "fp32"
+                else bf16_ulps(b, 8))
+        torch.testing.assert_close(a, b, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-mistral-7b"])
+def test_encoder_and_vlm_launches_on_card(cuda, arch):
+    """Reduced hubert's encoder forward and llava's prefill (16 patches
+    and 61 tokens, past the window of 64) launch the flash kernel once a
+    layer and decode launches none; the logits agree with the CPU's
+    within 8 bf16 ulps of the largest."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.compare import family_batch
+    cfg = reduced(ARCHS[arch])
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = family_batch(cfg, 2, 61, 0)
+    want = _family_run(cfg, params, batch, "cpu")
+    before = fa_kernel.flash_attention_bhsd.launches
+    got = _family_run(cfg, params, batch, cuda)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_bhsd.launches == before + cfg.n_layers
+    for a, b in zip(got, want):
+        atol = 8 * 2.0 ** (np.floor(np.log2(float(b.abs().max()))) - 7)
+        torch.testing.assert_close(a, b, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_moe_vmap_grad_on_card_matches_cpu(cuda, monkeypatch):
+    """`LMFederation`'s local step shape: the next-token loss of reduced
+    olmoe under ``vmap(grad)`` over two institutions (the routing's
+    gathers and scatters batched), in fp32 compute: the card's gradients
+    within 1e-4 of each leaf's largest of the CPU's, none lost."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import layers
+    from repro_torch.pytree import tree_map
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduced(ARCHS["olmoe-1b-7b"])
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    stacked = tree_map(lambda x: torch.stack([x, x * 0.9]), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 4, 16)).astype(np.int32))
+
+    def loss_fn(p, t):
+        logits, aux = models.forward(cfg, p, {"tokens": t}, impl="ref")
+        lse = torch.logsumexp(logits[:, :-1], dim=-1)
+        gold = torch.gather(logits[:, :-1], -1,
+                            t[:, 1:].long()[..., None])[..., 0]
+        return (lse - gold).mean() + 0.01 * aux["load_balance"]
+    grads = {}
+    for dev in ("cpu", cuda):
+        grads[str(dev)] = torch.func.vmap(torch.func.grad(loss_fn))(
+            tree_map(lambda x: x.to(dev), stacked), toks.to(dev))
+    for a, b in zip(tree_flatten(grads[str(cuda)])[0],
+                    tree_flatten(grads["cpu"])[0]):
+        assert bool(b.abs().max() > 0)
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

@@ -127,21 +127,6 @@ def test_init_params_follow_the_specs():
     assert abs(std - 1 / np.sqrt(cfg.d_model)) < 0.1 / np.sqrt(cfg.d_model)
 
 
-def test_unported_families_raise():
-    """MoE, the audio and VLM front ends and encoder-only models are not
-    ported yet (ROADMAP queue A item 25): their forward raises."""
-    toks = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
-    cases = [(reduced(ARCHS["olmoe-1b-7b"]), "MoE"),
-             (reduced(ARCHS["hubert-xlarge"]), "audio front end"),
-             (reduced(ARCHS["llava-next-mistral-7b"]), "vlm front end"),
-             (dataclasses.replace(reduced(ARCHS["qwen3-0.6b"]),
-                                  causal=False), "encoder-only")]
-    for cfg, match in cases:
-        p = models.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match=match):
-            models.forward(cfg, p, toks)
-
-
 # ----------------------------------------------------------------------
 # layers
 
