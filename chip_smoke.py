@@ -6,6 +6,7 @@
     python3 chip_smoke.py --turns PARENT  # two kernels vs a parent tree's
     python3 chip_smoke.py --training      # the training path alone
     python3 chip_smoke.py --families      # the MoE, audio, VLM paths alone
+    python3 chip_smoke.py --examples      # shim, examples, dry-run alone
 
 Builds the port's CUDA kernels from this checkout (each
 ``src/repro_torch/csrc/*.cu`` into its own library for sm_90a, one nvcc
@@ -99,6 +100,15 @@ after:
   layers at its published width, through the fp32 flash-attention kernel,
   held against the plain attention path on the card.
 
+* the ``core.gossip`` shim's five merges, masked and unmasked, bit-equal
+  to the merge registry on the card; each ``examples/torch_*.py`` at its
+  smallest flags on the card, timed, its launches in the kernels line;
+  and the dry-run's count on meta tensors (``launch.op_cost``) against
+  real steps under ``FlopCounterMode`` (a qwen3-0.6b prefill of 1,024
+  tokens, rwkv6-3b cut to 2 layers training on 256): equal matmul FLOPs,
+  equal args bytes, and the predicted temp of a smollm-360m train step
+  beside ``torch.cuda.max_memory_allocated``.
+
 Before the full-width paths, small runs on the card are held against the
 same runs on the CPU (the CNN federation in each mode, under faults and
 under each merge), and a mid-traffic hot-swap is checked for identity
@@ -116,6 +126,7 @@ cuDNN's deterministic algorithms by itself, and the LMs compute in bf16
 """
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -4141,6 +4152,223 @@ def time_kernels(dev):
     print(json.dumps(out))
 
 
+# ---- the gossip shim, the torch examples and the dry-run's count ------
+GOSSIP_P = 10
+EXAMPLE_FLAGS = {      # each example's smallest flags (quickstart has none)
+    "quickstart": [],
+    "chaos_federation": ["--scenario", "churn", "--rounds", "1"],
+    "adversarial_federation": ["--attack", "sign_flip_30", "--rounds", "1"],
+    "personalized_federation": ["--rounds", "1"],
+    "continuum_serve": ["--requests", "2", "--max-new", "1"],
+    "device_tier_federation": ["--institutions", "2", "--devices", "8",
+                               "--chunk", "4", "--rounds", "1"],
+}
+# the kernels each example must launch on the card
+EXAMPLE_KERNELS = {
+    "quickstart": ("masked_rolling_update",),
+    "chaos_federation": ("masked_rolling_update",),
+    "adversarial_federation": ("clip_noise",),
+    "personalized_federation": (),
+    "continuum_serve": ("flash_attention_bhsd",),
+    "device_tier_federation": (),
+}
+DRYRUN_PREFILL = ("qwen3-0.6b", 1, 1024)          # arch, batch, tokens
+DRYRUN_RWKV = ("rwkv6-3b", 2, 1, 256)             # arch, layers, batch, tokens
+DRYRUN_TRAIN = ("smollm-360m", 4, 512)            # arch, batch, tokens
+
+
+def gossip_shim_path(dev, kernels, totals):
+    """The five `core.gossip` shim functions, masked and unmasked, on a
+    (P, ...) tree on the card: bit-equal to the merge registry's output
+    for the same context.  secure_mean goes through the fused kernel."""
+    from repro_torch import random as prng
+    from repro_torch.core import gossip
+    from repro_torch.core.merges import MergeContext, get_merge
+    from repro_torch.pytree import tree_flatten
+    g = torch.Generator(dev).manual_seed(7)
+    tree = {"w": torch.randn(GOSSIP_P, 4096, generator=g, device=dev),
+            "b": {"c": torch.randn(GOSSIP_P, 3, 17, generator=g,
+                                   device=dev)}}
+    mask = torch.ones(GOSSIP_P, dtype=torch.bool, device=dev)
+    mask[[0, 4]] = False
+    key = prng.PRNGKey(77)
+    calls = {
+        "mean": (lambda m: gossip.mean_merge(tree, True, alpha=0.7, mask=m),
+                 lambda m: MergeContext(commit=True, mask=m, alpha=0.7)),
+        "ring": (lambda m: gossip.ring_merge(tree, True, shift=2, alpha=0.4,
+                                             mask=m),
+                 lambda m: MergeContext(commit=True, mask=m, alpha=0.4,
+                                        shift=2)),
+        "hierarchical": (
+            lambda m: gossip.hierarchical_merge(tree, True, group_size=5,
+                                                alpha=0.7, mask=m),
+            lambda m: MergeContext(commit=True, mask=m, alpha=0.7,
+                                   group_size=5)),
+        "quantized": (
+            lambda m: gossip.quantized_mean_merge(tree, True, alpha=0.7,
+                                                  mask=m),
+            lambda m: MergeContext(commit=True, mask=m, alpha=0.7)),
+        "secure_mean": (
+            lambda m: gossip.secure_mean_merge(tree, True, alpha=0.7,
+                                               key=key, mask=m),
+            lambda m: MergeContext(commit=True, mask=m, alpha=0.7,
+                                   key=key)),
+    }
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    for name, (shim, ctx) in calls.items():
+        for m in (None, mask):
+            got = tree_flatten(shim(m))[0]
+            want = tree_flatten(get_merge(name).merge(tree, ctx(m)))[0]
+            assert all(a.is_cuda and same_bits(a, b)
+                       for a, b in zip(got, want)), (name, m is not None)
+    counts = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in counts:
+        totals[name] += counts[name]
+    assert counts["masked_rolling_update"] == 4, counts    # shim + registry
+    print(f"gossip shim at P = {GOSSIP_P} on the card: 5 merges x "
+          f"(unmasked, masked) bit-equal to the registry | launches {counts}")
+
+
+def example_module(name):
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(dev, kernels, lm_wrappers, totals, lm_launches):
+    """Each `examples/torch_*.py` `main` at its smallest flags on the
+    card, its wall time and the launches it made (counts from 0 before
+    each), which go into the kernels line."""
+    wrappers = {name: k["wrapper"] for name, k in kernels.items()}
+    wrappers.update(lm_wrappers)
+    for name, flags in EXAMPLE_FLAGS.items():
+        mod = example_module(name)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            text = mod.main(flags)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, c in counts.items():
+            if n in totals:
+                totals[n] += c
+            else:
+                lm_launches[n] += c
+        for n in EXAMPLE_KERNELS[name]:
+            assert counts[n] > 0, (name, counts)
+        assert "nan" not in text.lower(), (name, text)
+        last = text.strip().splitlines()[-1]
+        print(f"example torch_{name} {' '.join(flags)} on cuda: "
+              f"{secs:.2f} s | launches "
+              f"{ {n: c for n, c in counts.items() if c} } | {last[:100]}")
+
+
+def dryrun_crosscheck(dev):
+    """The dry-run's count (`launch.op_cost` on meta tensors) against real
+    steps on the card under ``torch.utils.flop_counter.FlopCounterMode``
+    with the same impl: a qwen3-0.6b prefill and a reduced-depth rwkv6-3b
+    train step (the matmul FLOPs must be equal, and the predicted args
+    the bytes of the real params, optimizer state and batch); then the
+    predicted temp of a smollm-360m train step beside
+    ``torch.cuda.max_memory_allocated`` (printed, not held)."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.optim import adamw_init
+    from repro_torch.pytree import tree_map
+
+    def real_like(meta_args, vocab):
+        """Seeded tensors on the card in the meta args' shapes; integer
+        leaves are token ids."""
+        def one(t):
+            if t.is_floating_point():
+                return 0.02 * torch.randn(t.shape, generator=gen, device=dev,
+                                          dtype=t.dtype)
+            return torch.randint(1, vocab, t.shape, generator=gen,
+                                 device=dev, dtype=t.dtype)
+        return tree_map(one, meta_args)
+
+    def check(label, cfg, shape, real_args_fn, impl):
+        fn, meta_args = dryrun.step_and_args(cfg, shape, impl)
+        t0 = time.perf_counter()
+        counts = op_cost.analyze_ops(fn, *meta_args)
+        count_s = time.perf_counter() - t0
+        temp = counts["peak_bytes"] - dryrun._storage_bytes(counts["out"])
+        args = real_args_fn(meta_args)
+        predicted = dryrun._storage_bytes(meta_args)
+        real = dryrun._storage_bytes(args)
+        assert predicted == real, (label, predicted, real)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        real_temp = (torch.cuda.max_memory_allocated() - before
+                     - dryrun._storage_bytes(out))
+        flops = fc.get_total_flops()
+        assert counts["matmul_flops"] == flops, (label, counts, flops)
+        for t in op_cost.tensors(out):
+            assert bool(torch.isfinite(t.float()).all()), label
+        gib = 2.0 ** 30
+        print(f"dry-run cross-check {label}: matmul FLOPs counted on meta "
+              f"{counts['matmul_flops']:.6e} == FlopCounterMode on the card "
+              f"{flops:.6e}; args {predicted:,} B predicted == {real:,} B "
+              f"real; temp predicted {temp / gib:.3f} GiB vs "
+              f"max_memory_allocated less args and outputs "
+              f"{real_temp / gib:.3f} GiB; count {count_s:.2f} s")
+        del out, args
+
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def train_args(vocab):
+        def make(meta):
+            params = real_like(meta[0], vocab)
+            return (params, adamw_init(params),
+                    torch.zeros((), dtype=torch.int32, device=dev),
+                    real_like(meta[3], vocab))
+        return make
+
+    arch, B, S = DRYRUN_PREFILL
+    cfg = get_config(arch)
+    check(f"{arch} prefill ({B}, {S:,})", cfg,
+          InputShape("prefill", S, B, "prefill"),
+          lambda meta: real_like(meta, cfg.vocab_size), "ref")
+    arch, layers, B, S = DRYRUN_RWKV
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    check(f"{arch} ({layers} layers) train step ({B}, {S})", cfg,
+          InputShape("train", S, B, "train"), train_args(cfg.vocab_size),
+          "ref")
+    arch, B, S = DRYRUN_TRAIN
+    cfg = get_config(arch)
+    check(f"{arch} train step ({B}, {S})", cfg,
+          InputShape("train", S, B, "train"), train_args(cfg.vocab_size),
+          "auto")
+
+
+def examples_alone(dev, t_start):
+    """`--examples`: the gossip shim, the torch examples and the
+    dry-run cross-check alone (after the build)."""
+    kernels = secure_agg_kernels(dev)
+    lm = kernel_wrappers()
+    totals = {name: 0 for name in kernels}
+    launches = dict.fromkeys(lm, 0)
+    gossip_shim_path(dev, kernels, totals)
+    examples_path(dev, kernels, lm, totals, launches)
+    dryrun_crosscheck(dev)
+    print(f"examples alone: launches {totals} {launches}; took "
+          f"{time.perf_counter() - t_start:.1f} s after start-up")
+    return 0
+
+
 def kernel_turns(parent):
     """`--turns PARENT`: `--time-kernels` in four fresh processes, on the
     package of the tree PARENT (the parent commit unpacked), this tree's,
@@ -4273,6 +4501,8 @@ def main() -> int:
 
     if "--families" in args:
         return families_alone(dev, t_start)
+    if "--examples" in args:
+        return examples_alone(dev, t_start)
     if "--time-flash" in args:
         return flash_times_alone(dev)
 
@@ -4303,6 +4533,7 @@ def main() -> int:
         lm_kernels.values())
     totals = {name: 0 for name in kernels}
     totals_wide = {name: 0 for name in kernels}
+    lm_launches = dict.fromkeys(lm_kernels, 0)
     cnn_main_path(dev, kernels, fed_kwargs, totals)
     lap("cnn_main_path")
     fault_main_path(dev, kernels, fed_kwargs, totals)
@@ -4323,6 +4554,12 @@ def main() -> int:
     lap("device_tier_path")
     training_path(dev, kernels, fed_kwargs, totals)
     lap("training_path")
+    gossip_shim_path(dev, kernels, totals)
+    lap("gossip_shim_path")
+    examples_path(dev, kernels, lm_kernels, totals, lm_launches)
+    lap("examples_path")
+    dryrun_crosscheck(dev)
+    lap("dryrun_crosscheck")
     for name, n in list(totals.items()) + [
             (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"
@@ -4350,7 +4587,6 @@ def main() -> int:
         time_recurrent(dev, name, decode)
     lap("LM kernel timing")
 
-    lm_launches = dict.fromkeys(lm_kernels, 0)
     for arch, depth, lr in LM_PATHS:
         for name, n in lm_main_path(dev, arch, depth, lr, wrappers).items():
             lm_launches[name] += n

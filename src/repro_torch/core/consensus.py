@@ -320,3 +320,7 @@ class ConsensusGate:
     def total_consensus_time_s(self) -> float:
         return sum(t.elapsed_s for t in self.history)
 
+    @property
+    def total_leader_elections(self) -> int:
+        return sum(t.leader_elections for t in self.history)
+

@@ -32,6 +32,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
     return L.init_params(param_specs(cfg), generator)
 
 
+def abstract_params(cfg: ModelConfig):
+    return L.abstract_params(param_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig):
+    return L.param_axes(param_specs(cfg))
+
+
 def param_count(cfg: ModelConfig) -> int:
     return L.param_count(param_specs(cfg))
 
@@ -54,6 +62,13 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int,
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     return _module(cfg).init_decode_state(cfg, batch_size, seq_len,
                                           device=device)
+
+
+def decode_state_specs(cfg: ModelConfig, batch_size: int, seq_len: int):
+    """(``meta`` tensors of the decode state, their logical axes)."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    return _module(cfg).decode_state_specs(cfg, batch_size, seq_len)
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, pos):

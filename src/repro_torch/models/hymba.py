@@ -232,6 +232,15 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int,
     }
 
 
+def decode_state_specs(cfg: ModelConfig, batch_size: int, seq_len: int):
+    """(``meta`` tensors of the decode state, logical axes)."""
+    axes = {"k": ("layers", "batch", "kv_seq", None, None),
+            "v": ("layers", "batch", "kv_seq", None, None),
+            "pos": ("layers", "batch", "kv_seq"),
+            "ssm": ("layers", "batch", "mlp", None)}
+    return init_decode_state(cfg, batch_size, seq_len, device="meta"), axes
+
+
 def decode_step(cfg: ModelConfig, params: Params, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """tokens: (B,) int; pos: (B,) position of the new token among the

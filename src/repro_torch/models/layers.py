@@ -2,7 +2,9 @@
 
 Params are plain pytrees (nested dicts of tensors).  A model module
 defines a ``param_specs(cfg)`` tree of :class:`Spec` entries, from which
-``init_params`` draws real tensors and ``param_count`` counts them.
+``init_params`` draws real tensors, ``abstract_params`` makes ``meta``
+tensors of the same shapes, ``param_axes`` names their logical axes and
+``param_count`` counts them.
 Per-layer weights carry a leading ``layers`` dim, and the model runs a
 Python loop over it where the JAX package runs ``lax.scan``.
 
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.pytree import tree_flatten, tree_unflatten
+from repro_torch.launch import op_cost
+from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -65,6 +68,18 @@ def init_params(specs, generator: torch.Generator):
                               dtype=PARAM_DTYPE, device=dev) * std
         out.append(arr)
     return tree_unflatten(spec, out)
+
+
+def abstract_params(specs):
+    """``meta`` tensors in ``PARAM_DTYPE`` for a spec tree: the shapes
+    and dtypes of the params with no storage (the dry-run's inputs)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=PARAM_DTYPE,
+                                          device="meta"), specs)
+
+
+def param_axes(specs):
+    """The logical axis names of each param, a tuple a leaf."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 def param_count(specs) -> int:
@@ -261,6 +276,15 @@ def _fit_chunk(size: int, target: int) -> int:
     return c
 
 
+def _window_band(Skv: int, window: int, q_chunk: int, kv_chunk: int) -> int:
+    """The keys one q chunk of `mha_chunked` visits: with a sliding
+    window, window + q_chunk rounded up to whole kv chunks; else all."""
+    if window <= 0:
+        return Skv
+    band = window + q_chunk
+    return min(((band + kv_chunk - 1) // kv_chunk) * kv_chunk, Skv)
+
+
 def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                 q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax (flash-style) attention in plain tensor code.
@@ -274,14 +298,10 @@ def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     v = _gqa_expand(v, Hq).float()
     q_chunk = _fit_chunk(Sq, q_chunk)
     kv_chunk = _fit_chunk(Skv, kv_chunk)
-    nq, nk = Sq // q_chunk, Skv // kv_chunk
+    nq = Sq // q_chunk
     scale = 1.0 / np.sqrt(hd)
-    if window > 0:
-        band = window + q_chunk
-        band = min(((band + kv_chunk - 1) // kv_chunk) * kv_chunk, Skv)
-        nk_eff = band // kv_chunk
-    else:
-        band, nk_eff = Skv, nk
+    band = _window_band(Skv, window, q_chunk, kv_chunk)
+    nk_eff = band // kv_chunk
 
     outs = []
     for qi in range(nq):
@@ -330,12 +350,28 @@ def attention(q, k, v, *, causal=True, window=0, impl="auto",
         impl = "pallas" if q.device.type == "cuda" else "plain"
     if impl == "plain":
         impl = "chunked" if q.shape[1] > 1024 else "ref"
+    counter = op_cost.active()
+    if counter is not None and not kw:
+        kv_len = k.shape[1]
+        if impl == "chunked":
+            kv_len = _window_band(kv_len, window, _fit_chunk(q.shape[1], 512),
+                                  _fit_chunk(kv_len, 1024))
+        return counter.region("attention", mha_one_shot, (q, k, v),
+                              dict(causal=causal, window=window,
+                                   kv_len=kv_len))
     if impl in ("pallas", "fused"):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     if impl == "chunked":
         return mha_chunked(q, k, v, causal=causal, window=window)
     return mha_reference(q, k, v, causal=causal, window=window, **kw)
+
+
+def mha_one_shot(q, k, v, *, causal: bool, window: int, kv_len: int):
+    """`mha_reference` over the first `kv_len` keys: what a step count
+    (`launch.op_cost`) prices an attention call as."""
+    return mha_reference(q, k[:, :kv_len], v[:, :kv_len], causal=causal,
+                         window=window)
 
 
 # ======================================================================
@@ -345,6 +381,10 @@ def decode_attention(q, k_cache, v_cache, cache_positions, *,
                      window: int = 0):
     """One-token attention. q: (B,1,Hq,hd); caches: (B,W,Hkv,hd);
     cache_positions: (B,W) absolute positions, -1 = empty slot."""
+    counter = op_cost.active()
+    if counter is not None:
+        return counter.region("attention", _decode_attention_impl,
+                              (q, k_cache, v_cache, cache_positions))
     return _decode_attention_impl(q, k_cache, v_cache, cache_positions)
 
 

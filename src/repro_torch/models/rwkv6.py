@@ -221,6 +221,14 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int,
     }
 
 
+def decode_state_specs(cfg: ModelConfig, batch_size: int, seq_len: int):
+    """(``meta`` tensors of the decode state, logical axes)."""
+    axes = {"wkv": ("layers", "batch", "heads", None, None),
+            "shift_t": ("layers", "batch", None),
+            "shift_c": ("layers", "batch", None)}
+    return init_decode_state(cfg, batch_size, seq_len, device="meta"), axes
+
+
 def decode_step(cfg: ModelConfig, params: Params, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """tokens: (B,) int; pos: (B,) (unused: the state carries the

@@ -218,6 +218,15 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int,
     }
 
 
+def decode_state_specs(cfg: ModelConfig, batch_size: int, seq_len: int):
+    """(``meta`` tensors of the cache, logical axes): the cache's sequence
+    dim is the one the reference shards ("kv_seq")."""
+    axes = {"k": ("layers", "batch", "kv_seq", None, None),
+            "v": ("layers", "batch", "kv_seq", None, None),
+            "pos": ("layers", "batch", "kv_seq")}
+    return init_decode_state(cfg, batch_size, seq_len, device="meta"), axes
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache_seq_len: int, *, impl: str = "auto"):
     """Batched prefill: one forward pass over the prompt that also fills

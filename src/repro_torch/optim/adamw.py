@@ -2,12 +2,14 @@
 
 The state mirrors the param tree: fp32 moments ``m`` and ``v`` and an
 int32 step ``count``.  The update is computed in fp32 and cast back to
-each param's dtype.  The sharding helpers of the reference
-(``optimizer_abstract_state``, ``optimizer_state_axes``) go with the
-meshes (ROADMAP queue A item 27) and are not ported.
+each param's dtype.  `optimizer_abstract_state` and
+`optimizer_state_axes` describe the state without allocating it, for
+the dry-run; placing it on a mesh goes with the meshes (ROADMAP queue A
+item 27).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Tuple
 
@@ -35,6 +37,21 @@ def adamw_init(params: Pytree) -> Pytree:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32,
                                  device=first.device)}
+
+
+def optimizer_abstract_state(abstract_params: Pytree) -> Pytree:
+    """The state of `adamw_init` as ``meta`` tensors."""
+    def z(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"m": tree_map(z, abstract_params),
+            "v": tree_map(z, abstract_params),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def optimizer_state_axes(axes: Pytree) -> Pytree:
+    """Logical axes of the state: the params' for the moments, none for
+    the scalar count."""
+    return {"m": copy.deepcopy(axes), "v": copy.deepcopy(axes), "count": ()}
 
 
 def global_norm(tree: Pytree) -> torch.Tensor:

@@ -1238,3 +1238,67 @@ def test_moe_vmap_grad_on_card_matches_cpu(cuda, monkeypatch):
         assert bool(b.abs().max() > 0)
         torch.testing.assert_close(a.cpu(), b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# the gossip shim and the dry-run's count on the card
+
+_SHIM_CALLS = ["mean", "ring", "hierarchical", "quantized", "secure_mean"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", _SHIM_CALLS)
+def test_gossip_shim_equals_the_registry_on_the_card(cuda, name, masked):
+    from repro_torch import random as prng
+    from repro_torch.core import gossip
+    from repro_torch.core.merges import MergeContext, get_merge
+    g = torch.Generator(cuda).manual_seed(3)
+    tree = {"w": torch.randn(10, 4097, generator=g, device=cuda),
+            "b": [torch.randn(10, 3, 5, generator=g, device=cuda)]}
+    mask = None
+    if masked:
+        mask = torch.ones(10, dtype=torch.bool, device=cuda)
+        mask[[0, 4]] = False
+    key = prng.PRNGKey(5)
+    kw = {"ring": dict(shift=2), "hierarchical": dict(group_size=5),
+          "secure_mean": dict(key=key)}.get(name, {})
+    shim = {"mean": gossip.mean_merge, "ring": gossip.ring_merge,
+            "hierarchical": gossip.hierarchical_merge,
+            "quantized": gossip.quantized_mean_merge,
+            "secure_mean": gossip.secure_mean_merge}[name]
+    got = shim(tree, True, alpha=0.7, mask=mask, **kw)
+    want = get_merge(name).merge(tree, MergeContext(
+        commit=True, mask=mask, alpha=0.7, **kw))
+    for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b", "hymba-1.5b"])
+def test_dryrun_count_equals_flop_counter_on_the_card(cuda, arch):
+    """A reduced train step counted on meta tensors and run on the card
+    under FlopCounterMode, impl="ref": equal matmul FLOPs and args."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import INPUT_SHAPES, get_config, reduced
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.optim import adamw_init
+    from repro_torch.pytree import tree_map
+    cfg = reduced(get_config(arch))
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=64,
+                                global_batch=2)
+    fn, meta = dryrun.step_and_args(cfg, shape, "ref")
+    counts = op_cost.analyze_ops(fn, *meta)
+    g = torch.Generator(cuda).manual_seed(0)
+    params = tree_map(lambda t: 0.02 * torch.randn(
+        t.shape, generator=g, device=cuda), meta[0])
+    batch = tree_map(lambda t: torch.randint(
+        1, cfg.vocab_size, t.shape, generator=g, device=cuda,
+        dtype=t.dtype), meta[3])
+    args = (params, adamw_init(params),
+            torch.zeros((), dtype=torch.int32, device=cuda), batch)
+    assert dryrun._storage_bytes(args) == dryrun._storage_bytes(meta)
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    assert counts["matmul_flops"] == fc.get_total_flops()

@@ -8,6 +8,7 @@ to fp32 rounding, and the int domain quantizes at 2^-16, so an update that
 lands near a quantization boundary may round one step apart.
 """
 import dataclasses
+import glob
 import hashlib
 import os
 import subprocess
@@ -248,15 +249,20 @@ def test_three_round_federation_matches_jax(mode):
 # package boundaries and the device contract
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, and chip_smoke.py, import without jax."""
-    smoke = os.path.abspath(os.path.join(SRC, os.pardir, "chip_smoke.py"))
+    """Every module of the port, chip_smoke.py and the torch examples
+    import without jax."""
+    root = os.path.abspath(os.path.join(SRC, os.pardir))
+    scripts = [os.path.join(root, "chip_smoke.py")] + sorted(
+        glob.glob(os.path.join(root, "examples", "torch_*.py")))
+    assert len(scripts) == 7, scripts
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"spec = importlib.util.spec_from_file_location('smoke', {smoke!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for i, path in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -266,7 +272,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         ".continuum.costmodel', 'repro_torch.optim.adamw', 'repro_torch"
         ".optim.schedules', 'repro_torch.training.train', 'repro_torch"
         ".core.scheduler', 'repro_torch.launch.train', 'repro_torch.launch"
-        ".ehr_train'}\n"
+        ".ehr_train', 'repro_torch.core.gossip', 'repro_torch.launch"
+        ".analysis', 'repro_torch.launch.op_cost', 'repro_torch.launch"
+        ".dryrun'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
