@@ -7,6 +7,7 @@
     python3 chip_smoke.py --training      # the training path alone
     python3 chip_smoke.py --families      # the MoE, audio, VLM paths alone
     python3 chip_smoke.py --examples      # shim, examples, dry-run alone
+    python3 chip_smoke.py --mesh          # the mesh path alone
 
 Builds the port's CUDA kernels from this checkout (each
 ``src/repro_torch/csrc/*.cu`` into its own library for sm_90a, one nvcc
@@ -53,6 +54,15 @@ after:
   kernels, the ledger's survivors are the mask's, dropped rows come back
   untouched, and the same schedule at a small width gives the CPU's
   params;
+* the same federation with its institution axis over ranks
+  (``run_rounds(mesh=...)``): P = 16 hospitals at full width, 2 rounds
+  in each secure_mean mode, healthy and under 30% dropout, on a 1-rank
+  NCCL mesh in this process (bit-identical to no mesh), then on 2 and 4
+  spawned ranks sharing the card over gloo (each rank bit-equal to one
+  process training the same blocks of hospitals, and within rtol 2e-5,
+  atol 1e-4 of the 1-rank run; its transcripts and stats equal, the
+  fused kernels launched on every rank), and over NCCL across cards
+  where there are several; each run's round ms and the gather's ms;
 * the device tier (``core.device_tier``) at the repo's headline size: P =
   64 hospitals, each fronting D = 16,384 simulated personal devices (2^20
   device updates a round) in chunks of 1,024 with dropout and late
@@ -102,7 +112,9 @@ after:
 
 * the ``core.gossip`` shim's five merges, masked and unmasked, bit-equal
   to the merge registry on the card; each ``examples/torch_*.py`` at its
-  smallest flags on the card, timed, its launches in the kernels line;
+  smallest flags on the card (``torch_scale_institutions`` at its
+  published size on a 1-rank NCCL mesh), timed, its launches in the
+  kernels line;
   and the dry-run's count on meta tensors (``launch.op_cost``) against
   real steps under ``FlopCounterMode`` (a qwen3-0.6b prefill of 1,024
   tokens, rwkv6-3b cut to 2 layers training on 256): equal matmul FLOPs,
@@ -3234,6 +3246,260 @@ def placement_path(dev, kernels, totals):
           f"deadline {deadline:.4f} s")
 
 
+# ----------------------------------------------------------------------
+# the mesh-parallel federation (slice 17): the institution axis over ranks
+
+MESH_P, MESH_ROUNDS = 16, 2
+MESH_WORLDS = (2, 4)              # gloo ranks sharing the one card
+MESH_RTOL, MESH_ATOL = 2e-5, 1e-6  # the reference's cross-layout bounds
+# A rank vmaps its block of hospitals where one process vmaps all 16, and
+# the local step's convolutions and bias reductions then sum in another
+# order, so the layouts' params differ.  The least atol that holds every
+# element at the reference's rtol, read on the card at W = 2 and 4 alike:
+# float 6.53e-6 (healthy; 1.3e-7 under dropout); int 1.52e-5, one
+# quantization step (2^-16 = 1.53e-5); DP 1.33e-7 healthy and 2.48e-5
+# under dropout, where the dead replicas' rows reach 1,716 (one ulp
+# 1.22e-4) and their small elements carry errors of the row's scale.
+# Each mode is held at the reference's rtol and an atol set from those
+# readings: about 3x the float one, one int step and a half, 2x DP's
+MESH_TRAIN_ATOL = {"float": 2e-5, "int": 1.5 * 2 ** -16, "dp": 5e-5}
+MESH_RUNS = [(mode, sched) for mode in MODES
+             for sched in ("healthy", "dropout30")]
+
+
+def mesh_federation(dev, mode, sched, mesh=None):
+    """The paper's federation at full width, P = MESH_P, the fleet
+    consensus, in `mode` under `sched` ("healthy" or 30% dropout)."""
+    from repro_torch.chaos import Dropout
+    from repro_torch.core import ProtocolParams
+    from repro_torch.privacy.accountant import DPConfig
+    kw = dict(secure_domain="int" if mode == "int" else "float",
+              dp=DPConfig(clip_norm=0.5, noise_multiplier=1.0)
+              if mode == "dp" else None)
+    return full_width_federation(
+        dev, None if sched == "healthy" else Dropout(rate=0.30, seed=0),
+        kw, P=MESH_P, consensus_params=ProtocolParams.for_fleet(MESH_P),
+        mesh=mesh)
+
+
+def train_in_blocks(overlay, W):
+    """Make `overlay.local_phase` train its rows in W blocks, one vmap a
+    block, in turn: in one process, the arithmetic of a W-rank mesh."""
+    from repro_torch.pytree import tree_map
+    inner = overlay.local_phase
+
+    def phase(stacked, batches, local_step):
+        per = MESH_P // W
+        outs = [inner(tree_map(lambda x: x[r * per:(r + 1) * per], stacked),
+                      tree_map(lambda x: x[:, r * per:(r + 1) * per],
+                               batches), local_step) for r in range(W)]
+        return tuple(tree_map(lambda *xs: torch.cat(xs), *parts)
+                     for parts in zip(*outs))
+    overlay.local_phase = phase
+
+
+def mesh_run(fed, kernels):
+    """MESH_ROUNDS rounds of `fed` with the kernels' counts from 0, the
+    gather timed around each call: (ms a round, gather ms a call,
+    transcripts, launches)."""
+    gather = Stopwatch(fed.overlay._gather_rows)
+    fed.overlay._gather_rows = gather
+    for k in kernels.values():
+        k["wrapper"].launches = k["wrapper"].launches_wide = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, trs = fed.run_rounds(MESH_ROUNDS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_ROUNDS
+    counts = {n: k["wrapper"].launches for n, k in kernels.items()}
+    assert not any(k["wrapper"].launches_wide for k in kernels.values())
+    g_ms = (gather.seconds * 1e3 / len(gather.calls)) if gather.calls \
+        else None
+    return ms, g_ms, trs, counts
+
+
+def mesh_record(fed, trs):
+    """What a mesh run is held to: its leaves on the host, transcripts,
+    stats and chain digest (None on a rank that keeps no ledger)."""
+    from repro_torch.pytree import tree_flatten
+    return {"leaves": [x.cpu() for x in tree_flatten(fed.stacked)[0]],
+            "transcripts": [(t.committed, t.survivors) for t in trs],
+            "stats": fed.overlay.stats,
+            "digest": fed.chain_digest() if fed.overlay.registry.chain
+            else None}
+
+
+def mesh_rank(rank, world_size, ref_path, out_dir):
+    """One rank of part (b) or (c): every MESH_RUNS federation on the
+    ("inst",) mesh of all ranks.  Its state must equal bit for bit the
+    one-process run that trains the same blocks (and rank 0's chain
+    digest that run's), its transcripts and stats too, and lie within
+    rtol MESH_RTOL, atol MESH_TRAIN_ATOL[mode] of part (a)'s; rows 1-3
+    launched by this rank.  Writes a JSON report to `out_dir`."""
+    from repro_torch.sharding import make_institution_mesh, rank_device
+    dev = rank_device("cuda")
+    mesh = make_institution_mesh(device=dev)
+    kernels = secure_agg_kernels(dev)
+    refs = torch.load(ref_path, weights_only=False)   # this program's
+    mesh_federation(dev, "float", "healthy", mesh).run_rounds(1)  # warm-up
+    runs = []
+    for mode, sched in MESH_RUNS:
+        fed = mesh_federation(dev, mode, sched, mesh)
+        ms, g_ms, trs, counts = mesh_run(fed, kernels)
+        got = mesh_record(fed, trs)
+        want = refs["blocks"][f"{mode}-{sched}"]
+        assert all(same_bits(a, b) for a, b in
+                   zip(got["leaves"], want["leaves"])), (rank, mode, sched)
+        assert got["transcripts"] == want["transcripts"], (mode, sched)
+        assert got["stats"] == want["stats"], (mode, sched)
+        if rank == 0:          # rank 0 alone keeps the ledger
+            assert fed.overlay.registry.verify_chain()
+            assert got["digest"] == want["digest"], (mode, sched)
+        for name in MODE_KERNELS[mode]:
+            assert counts[name] == MESH_ROUNDS, (rank, mode, sched, counts)
+        one = refs["one"][f"{mode}-{sched}"]["leaves"]
+        held = all(torch.allclose(a, b, rtol=MESH_RTOL,
+                                  atol=MESH_TRAIN_ATOL[mode])
+                   for a, b in zip(got["leaves"], one))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got["leaves"], one))
+        # the least atol that holds every element at rtol MESH_RTOL
+        need = max(float(((a - b).abs() - MESH_RTOL * b.abs()).max())
+                   for a, b in zip(got["leaves"], one))
+        close = all(torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL)
+                    for a, b in zip(got["leaves"], one))
+        runs.append({"mode": mode, "sched": sched, "ms": ms,
+                     "gather_ms": g_ms, "max_abs_err": err,
+                     "atol_needed": need,
+                     "rel": leaf_rel_err(got["leaves"], one),
+                     "held": held, "within_reference_bounds": close,
+                     "launches": counts, "device": str(dev)})
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(runs, f)
+
+
+def mesh_ranks(world_size, backend, ref_path, totals):
+    """Part (b) or (c): `mesh_rank` on `world_size` spawned ranks; prints
+    each run's round ms, gather ms, distance from (a) and launches, rank
+    by rank, then fails if a run of a rank lay outside its mode's bound."""
+    from repro_torch.launch.mesh import spawn_ranks
+    out = tempfile.mkdtemp(prefix="mesh_ranks_")
+    try:
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_rank, world_size, backend=backend,
+                    args=(ref_path, out))
+        secs = time.perf_counter() - t0
+        reports = []
+        for r in range(world_size):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    missed = []
+    for i, (mode, sched) in enumerate(MESH_RUNS):
+        runs = [rep[i] for rep in reports]
+        missed += [(mode, sched, r) for r, run in enumerate(runs)
+                   if not run["held"]]
+        for run in runs:
+            for n, c in run["launches"].items():
+                totals[n] += c
+        print(f"  W={world_size} {backend} {mode} {sched}: ms/round "
+              f"{[round(r['ms'], 2) for r in runs]}, gather ms/call "
+              f"{[round(r['gather_ms'], 3) for r in runs]} (rank 0..) | "
+              f"max |err| vs (a) {max(r['max_abs_err'] for r in runs):.3g}"
+              f" (of the leaf's largest {max(r['rel'] for r in runs):.3g})"
+              f", least atol at rtol {MESH_RTOL} "
+              f"{max(r['atol_needed'] for r in runs):.3g} (held to "
+              f"{MESH_TRAIN_ATOL[mode]:.3g}; within the reference's atol "
+              f"{MESH_ATOL}: "
+              f"{all(r['within_reference_bounds'] for r in runs)}) | "
+              f"launches {runs[0]['launches']} on each of "
+              f"{sorted({r['device'] for r in runs})}")
+    assert not missed, f"W={world_size}: outside the mode's atol: {missed}"
+    print(f"  W={world_size} {backend}: every rank bit-equal to one process "
+          f"training the same {MESH_P // world_size}-row blocks (rank 0's "
+          f"chain digest too), within rtol {MESH_RTOL} and each mode's "
+          f"atol {MESH_TRAIN_ATOL} of (a); {secs:.1f} s with start-up")
+
+
+def mesh_path(dev, kernels, totals):
+    """The federation's institution axis over ranks (`run_rounds(mesh=)`),
+    P = MESH_P at full width, MESH_ROUNDS rounds in each MESH_RUNS mode
+    and schedule.  (a) A 1-rank NCCL mesh in this process, bit-identical
+    to mesh=None (params, chain digest, stats), rows 1-3 launched.  (b)
+    W = 2 and 4 spawned ranks sharing this card over gloo (NCCL refuses
+    two ranks on one device): every rank's state bit-equal to one
+    process training the same blocks (`train_in_blocks`; so the gather
+    and the merge are exact), transcripts and stats equal, rank 0's chain
+    verified and its digest equal, within rtol MESH_RTOL, atol
+    MESH_TRAIN_ATOL[mode] of (a) (the least atol that holds, and whether
+    the reference's does, printed), rows 1-3 launched by every rank.  (c)
+    NCCL across min(4, count) cards where there is more than one.  Prints
+    each run's round ms and the gather's ms on the host clock around the
+    collective."""
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.sharding import make_institution_mesh, mesh_barrier
+    one = {}
+    mesh_federation(dev, "float", "healthy").run_rounds(1)  # warm-up
+    with process_group("nccl"):
+        mesh = make_institution_mesh(1)
+        mesh_barrier(mesh)                # NCCL's communicator, untimed
+        for mode, sched in MESH_RUNS:
+            plain = mesh_federation(dev, mode, sched)
+            p_ms, _, p_trs, _ = mesh_run(plain, kernels)
+            fed = mesh_federation(dev, mode, sched, mesh)
+            ms, g_ms, trs, counts = mesh_run(fed, kernels)
+            rec = mesh_record(fed, trs)
+            assert all(same_bits(a, b.cpu()) for a, b in zip(
+                rec["leaves"], mesh_record(plain, p_trs)["leaves"]))
+            assert plain.chain_digest() == rec["digest"]
+            assert plain.overlay.stats == fed.overlay.stats
+            assert [t.committed for t in trs] == \
+                [t.committed for t in p_trs] and any(t.committed for t in trs)
+            for name in MODE_KERNELS[mode]:
+                assert counts[name] == MESH_ROUNDS, (mode, sched, counts)
+            for n, c in counts.items():
+                totals[n] += c
+            one[f"{mode}-{sched}"] = rec
+            print(f"mesh path (a) 1-rank nccl {mode} {sched}: "
+                  f"{ms:.2f} ms/round (mesh=None {p_ms:.2f}), gather "
+                  f"{g_ms:.3f} ms/call | bit-identical to mesh=None "
+                  f"(params, chain digest, stats) | launches {counts}")
+            del plain, fed
+    parts = [(W, "gloo") for W in MESH_WORLDS]
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        parts.append((min(4, cards), "nccl"))
+    else:
+        print("mesh path (c) NCCL across cards: not run, one card here")
+    tmp = tempfile.mkdtemp(prefix="mesh_ref_")
+    try:
+        for W, backend in parts:
+            blocks = one            # a W that P does not divide: replicated
+            if MESH_P % W == 0:
+                blocks = {}
+                for mode, sched in MESH_RUNS:
+                    fed = mesh_federation(dev, mode, sched)
+                    train_in_blocks(fed.overlay, W)
+                    blocks[f"{mode}-{sched}"] = mesh_record(
+                        fed, mesh_run(fed, kernels)[2])
+            ref_path = os.path.join(tmp, f"ref{W}.pt")
+            torch.save({"one": one, "blocks": blocks}, ref_path)
+            mesh_ranks(W, backend, ref_path, totals)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_alone(dev, t_start):
+    """`--mesh`: the mesh path alone (after the build)."""
+    kernels = secure_agg_kernels(dev)
+    totals = {name: 0 for name in kernels}
+    mesh_path(dev, kernels, totals)
+    print(f"mesh alone: launches {totals}; took "
+          f"{time.perf_counter() - t_start:.1f} s after start-up")
+    return 0
+
+
 def copy_snapshot(src, dst, mode):
     """A copy of the snapshot `src` at `dst` for `corrupt_snapshot(dst,
     mode)`: the file the mode rewrites is copied, the payload is
@@ -4162,6 +4428,8 @@ EXAMPLE_FLAGS = {      # each example's smallest flags (quickstart has none)
     "continuum_serve": ["--requests", "2", "--max-new", "1"],
     "device_tier_federation": ["--institutions", "2", "--devices", "8",
                                "--chunk", "4", "--rounds", "1"],
+    # its published size, on a 1-rank NCCL mesh in this process
+    "scale_institutions": ["--world-size", "1", "--backend", "nccl"],
 }
 # the kernels each example must launch on the card
 EXAMPLE_KERNELS = {
@@ -4171,6 +4439,7 @@ EXAMPLE_KERNELS = {
     "personalized_federation": (),
     "continuum_serve": ("flash_attention_bhsd",),
     "device_tier_federation": (),
+    "scale_institutions": ("masked_rolling_update",),
 }
 DRYRUN_PREFILL = ("qwen3-0.6b", 1, 1024)          # arch, batch, tokens
 DRYRUN_RWKV = ("rwkv6-3b", 2, 1, 256)             # arch, layers, batch, tokens
@@ -4235,6 +4504,7 @@ def example_module(name):
     path = ROOT / "examples" / f"torch_{name}.py"
     spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod    # spawned ranks unpickle by this name
     spec.loader.exec_module(mod)
     return mod
 
@@ -4503,6 +4773,8 @@ def main() -> int:
         return families_alone(dev, t_start)
     if "--examples" in args:
         return examples_alone(dev, t_start)
+    if "--mesh" in args:
+        return mesh_alone(dev, t_start)
     if "--time-flash" in args:
         return flash_times_alone(dev)
 
@@ -4550,6 +4822,8 @@ def main() -> int:
     lap("fleet_recovery_path")
     placement_path(dev, kernels, totals)
     lap("placement_path")
+    mesh_path(dev, kernels, totals)
+    lap("mesh_path")
     device_tier_path(dev, kernels)
     lap("device_tier_path")
     training_path(dev, kernels, fed_kwargs, totals)

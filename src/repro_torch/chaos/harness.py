@@ -54,8 +54,13 @@ class CNNFederation:
     `merge_blocks`, `block_schedule` and `inner_merge` go to the overlay:
     ``block_spec=BlockSpec.by_prefix(backbone="conv", head="head")`` with
     ``merge_blocks=("backbone",)`` federates the conv stack while each
-    hospital keeps a personal head.  `mesh` is not ported yet and must be
-    None."""
+    hospital keeps a personal head.  `mesh`: a `DeviceMesh` with an
+    "inst" axis (`sharding.make_institution_mesh`), which `run_rounds`
+    passes to the overlay: every rank of the mesh builds the same
+    federation, trains its block of hospitals and holds the full merged
+    state after each round, so `divergence`, `snapshot` and `resume_from`
+    work on the full state (rank 0 alone writes a snapshot; see
+    `DecentralizedOverlay.run_rounds`).  `run_round` stays unsharded."""
 
     def __init__(self, schedule=None, seed: int = 0, *,
                  n_institutions: int = 5, local_steps: int = 2,
@@ -70,9 +75,7 @@ class CNNFederation:
                  inner_merge: str = "mean",
                  secure_domain: str = "float", stacked=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported to the "
-                                      "PyTorch overlay yet")
+        self.mesh = mesh
         self.device = resolve_device(device)
         P = n_institutions
         self.P, self.local_steps, self.batch = P, local_steps, batch
@@ -161,14 +164,17 @@ class CNNFederation:
         keys = np.stack([self.round_key(start + r) for r in range(n_rounds)])
         self.stacked, metrics, trs = self.overlay.run_rounds(
             self.stacked, (imgs, labels), self.local_step, keys, n_rounds,
-            snapshot_every=snapshot_every, snapshot_dir=snapshot_dir)
+            mesh=self.mesh, snapshot_every=snapshot_every,
+            snapshot_dir=snapshot_dir)
         return metrics, trs
 
     # -- crash recovery -------------------------------------------------
     def snapshot(self, snapshot_dir: str) -> str:
         """Persist a verified snapshot at the current round (what the
-        eager `run_round` loop calls between rounds); returns its path."""
-        return self.overlay.snapshot(snapshot_dir, self.stacked)
+        eager `run_round` loop calls between rounds); returns its path.
+        Under a mesh, rank 0 writes it and every rank waits for it."""
+        return self.overlay.snapshot(snapshot_dir, self.stacked,
+                                     mesh=self.mesh)
 
     def resume_from(self, snapshot_dir: str, on_skip=None
                     ) -> Tuple[int, list]:

@@ -5,14 +5,21 @@ rolling update and the ring re-stitched around dead institutions.
 Every helper excludes dead rows with ``where()`` rather than
 multiplication, so a dropped institution holding inf/NaN cannot poison
 the survivors' reduction (``inf * 0`` is NaN).
+
+The count, mean and abs-max take ``group=``, the port of the JAX
+package's ``axis_name=``: a rank passes its own block of rows and the
+process group of the institution axis, and the local sum or max is
+``all_reduce``d (SUM, MAX) over it, so every rank gets the global value.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.pytree import tree_map
+from repro_torch.sharding.api import host_staged
 
 Pytree = Any
 
@@ -31,24 +38,42 @@ def mask_nd(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (x.dim() - 1))
 
 
-def survivor_count(mask: torch.Tensor) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """`t` reduced over `group` (a no-op for None), on `t`'s device."""
+    if group is None:
+        return t
+    staged = host_staged(t, group)
+    dist.all_reduce(staged, op=op, group=group)
+    return staged.to(t.device)
+
+
+def survivor_count(mask: torch.Tensor, *, group=None) -> torch.Tensor:
     """f32 survivor count, clamped to >= 1 so an all-dead round cannot
-    divide by zero."""
-    return torch.clamp(mask.to(torch.float32).sum(), min=1.0)
+    divide by zero.  With `group`, `mask` is this rank's block and the
+    count is summed over the group."""
+    local = _all_reduce(mask.to(torch.float32).sum(), dist.ReduceOp.SUM,
+                        group)
+    return torch.clamp(local, min=1.0)
 
 
 def masked_mean(x: torch.Tensor, mask_b: torch.Tensor, count,
-                dim: int = 0) -> torch.Tensor:
+                dim: int = 0, *, group=None) -> torch.Tensor:
     """f32 mean of `x` over `dim` counting only rows where `mask_b` (a bool
-    mask already broadcast against x)."""
+    mask already broadcast against x).  With `group`, the masked sum of
+    this rank's rows is summed over the group first."""
     masked = torch.where(mask_b, x.to(torch.float32), 0.0)
-    return masked.sum(dim=dim, keepdim=True) / count
+    total = _all_reduce(masked.sum(dim=dim, keepdim=True),
+                        dist.ReduceOp.SUM, group)
+    return total / count
 
 
-def masked_abs_max(x: torch.Tensor, mask_b: torch.Tensor) -> torch.Tensor:
+def masked_abs_max(x: torch.Tensor, mask_b: torch.Tensor, *,
+                   group=None) -> torch.Tensor:
     """Scalar max |x| over surviving rows (dead rows count as 0): a shared
-    quantization scale must ignore a dead replica's garbage."""
-    return torch.where(mask_b, x.abs(), 0).max()
+    quantization scale must ignore a dead replica's garbage.  With
+    `group`, the max over the group's rows."""
+    return _all_reduce(torch.where(mask_b, x.abs(), 0).max(),
+                       dist.ReduceOp.MAX, group)
 
 
 def rolling(x: torch.Tensor, target: torch.Tensor, alpha) -> torch.Tensor:

@@ -49,7 +49,12 @@ default ``"params"``) only that subtree federates, and the rest (optimizer
 state, the device tier's stale buffers and device weights) stays with its
 institution.
 
-Meshes are not ported yet and raise `NotImplementedError`.
+Mesh-parallel federations: ``run_rounds(mesh=...)`` takes a
+`DeviceMesh` with an ``"inst"`` axis (`sharding.make_institution_mesh`,
+`launch.mesh.make_overlay_mesh`), and the institution axis spans the
+ranks: each trains its own block of hospitals, one ``all_gather`` a round
+brings every hospital's trained rows to every rank, and every rank runs
+the same publish-and-merge on them, the kernels included.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as prng
 from repro_torch.chaos.attacks import ATTACK_KINDS, apply_attack
@@ -70,6 +76,9 @@ from repro_torch.core.registry import ModelRegistry, RoundRecord
 from repro_torch.core.secure_agg import seed_from_key
 from repro_torch.pytree import tree_flatten, tree_map
 from repro_torch.kernels.dp import ops as _dp_ops
+from repro_torch.sharding.api import (
+    all_gather_rows, institution_rows, mesh_axis_sizes, mesh_barrier,
+)
 from repro_torch.privacy.accountant import RDPAccountant
 
 Pytree = Any
@@ -434,15 +443,22 @@ class DecentralizedOverlay:
                            merged_metadata=merged_metadata,
                            blocks=blocks_meta)
 
-    def _flush(self, rounds) -> None:
+    def _flush(self, rounds, ledger: bool = True) -> None:
         """One DLT flush for (transcript, survivors, published rows, merged
-        row) rounds, in round order."""
-        records = []
-        for r, (tr, survivors, published, row) in enumerate(rounds):
-            records.append(self._round_record(
-                self.round_index + r, tr, survivors, _host(published),
-                _host(row)))
-        self.registry.register_round_batch(records)
+        row) rounds, in round order.  ``ledger=False`` (a mesh rank other
+        than 0) writes no ledger record but keeps the stats, the round
+        index and the privacy accountant in step."""
+        if ledger:
+            records = []
+            for r, (tr, survivors, published, row) in enumerate(rounds):
+                records.append(self._round_record(
+                    self.round_index + r, tr, survivors, _host(published),
+                    _host(row)))
+            self.registry.register_round_batch(records)
+        elif self.accountant is not None:
+            for _, survivors, _, _ in rounds:
+                if survivors:
+                    self.accountant.step()
         for tr, survivors, _, _ in rounds:
             self.round_index += 1
             self.stats.append({"round": self.round_index,
@@ -505,17 +521,28 @@ class DecentralizedOverlay:
             self.round_index,
             None if sched is None else (lambda r: sched.faults(r, P)))
 
+    @staticmethod
+    def _keeps_ledger(mesh) -> bool:
+        """Whether this process keeps the DLT and writes the snapshots:
+        always without a mesh, global rank 0 alone under one."""
+        return mesh is None or dist.get_rank() == 0
+
     def snapshot(self, snapshot_dir: str, stacked: Pytree,
-                 metadata: Optional[Dict] = None) -> str:
+                 metadata: Optional[Dict] = None, *, mesh=None) -> str:
         """Persist a verified snapshot of the current state at
-        ``snapshot_dir/round_<index>``; returns its path."""
+        ``snapshot_dir/round_<index>``; returns its path.  Under `mesh`,
+        every rank of it calls this: rank 0 writes, and every rank waits
+        at a barrier until it has."""
         # imported here: checkpoint imports core.registry, and with it
         # this package
         from repro_torch.checkpoint.snapshot import (
             save_snapshot, snapshot_path,
         )
         path = snapshot_path(snapshot_dir, self.round_index)
-        save_snapshot(path, stacked, self, metadata=metadata)
+        if self._keeps_ledger(mesh):
+            save_snapshot(path, stacked, self, metadata=metadata)
+        if mesh is not None:
+            mesh_barrier(mesh)
         return path
 
     # ------------------------------------------------------------------
@@ -543,10 +570,31 @@ class DecentralizedOverlay:
         bit.  A crashed run resumes by restoring the newest verified
         snapshot into a fresh overlay (`checkpoint.snapshot
         .latest_verified_snapshot`, then `restore`) and running the
-        remaining rounds."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-parallel federations are not "
-                                      "ported to the PyTorch overlay yet")
+        remaining rounds.
+
+        Mesh-parallel federations: `mesh` is a `DeviceMesh` with an
+        ``"inst"`` axis of W ranks (a mesh without one raises ValueError
+        before anything runs), and every rank of the mesh makes the same
+        call with the same full (P, ...) `stacked` and `batches`.  Where P
+        divides W, rank r of the axis trains rows ``[r*P/W, (r+1)*P/W)``
+        (``Shard(0)``; `batches` sliced on dim 2), then one
+        `sharding.all_gather_rows` of its trained rows and metrics hands
+        every rank the full (P, ...) state, and every rank runs the
+        unchanged publish-and-merge on it, the kernels included: the merge
+        reads the rows it reads on one device, so only the local
+        training's batching under `vmap` differs across layouts.  Where P
+        does not divide W, every rank trains all P rows (the divisibility
+        guard: replicated, never padded).  On a 1-rank mesh the gather is
+        the identity, so the result is bit-identical to ``mesh=None``.
+        Every rank returns the full merged state and the metrics of all P.
+        Every rank runs the same host consensus, so the transcripts and
+        stats agree; global rank 0 alone keeps the DLT (the other ranks
+        register nothing) and writes the snapshots, and every rank waits
+        at a barrier after each snapshot."""
+        if mesh is not None and "inst" not in mesh_axis_sizes(mesh):
+            raise ValueError(
+                f"mesh must carry an 'inst' institution axis; got axes "
+                f"{tuple(mesh_axis_sizes(mesh))}")
         R = int(n_rounds)
         if R <= 0:
             raise ValueError("n_rounds must be positive")
@@ -580,8 +628,8 @@ class DecentralizedOverlay:
                 hi = min(lo + K, R)
                 stacked, metrics, trs = self.run_rounds(
                     stacked, tree_map(lambda x: x[lo:hi], batches),
-                    local_step, round_keys[lo:hi], hi - lo)
-                self.snapshot(snapshot_dir, stacked)
+                    local_step, round_keys[lo:hi], hi - lo, mesh=mesh)
+                self.snapshot(snapshot_dir, stacked, mesh=mesh)
                 all_metrics.append(metrics)
                 all_trs.extend(trs)
             metrics = {k: torch.cat([m[k] for m in all_metrics])
@@ -599,12 +647,24 @@ class DecentralizedOverlay:
             participation.append(self._survivors(tr, faults))
 
         # phase 2 (device): local training + gated merge, no host sync
+        # (under a mesh, each rank trains its block and one all_gather a
+        # round brings back the full rows)
+        block = None if mesh is None else institution_rows(
+            mesh, self.cfg.n_institutions)
         rounds, all_metrics = [], []
         for r, tr in enumerate(transcripts):
             _, k2 = prng.split(round_keys[r])
             ref = stacked if self.cfg.dp is not None else None
-            stacked, metrics = self.local_phase(
-                stacked, tree_map(lambda x: x[r], batches), local_step)
+            batch = tree_map(lambda x: x[r], batches)
+            if block is None:
+                stacked, metrics = self.local_phase(stacked, batch,
+                                                    local_step)
+            else:
+                group, lo, hi = block
+                trained = self.local_phase(
+                    tree_map(lambda x: x[lo:hi], stacked),
+                    tree_map(lambda x: x[:, lo:hi], batch), local_step)
+                stacked, metrics = self._gather_rows(trained, group)
             survivors, part = participation[r]
             stacked, published, row = self._merge(
                 stacked, k2, tr.committed, ref, self.round_index + r, part,
@@ -613,10 +673,16 @@ class DecentralizedOverlay:
             all_metrics.append(metrics)
 
         # phase 3 (host): ONE flush of all R rounds' DLT effects
-        self._flush(rounds)
+        self._flush(rounds, ledger=self._keeps_ledger(mesh))
         metrics = {k: torch.stack([m[k] for m in all_metrics])
                    for k in all_metrics[0]}
         return stacked, metrics, transcripts
+
+    @staticmethod
+    def _gather_rows(tree, group):
+        """Every rank's trained block -> the full rows on every rank (one
+        collective; a method so that a caller can time it)."""
+        return all_gather_rows(tree, group)
 
     # ------------------------------------------------------------------
     def divergence(self, stacked: Pytree) -> float:

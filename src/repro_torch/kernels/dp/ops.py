@@ -5,7 +5,8 @@
                       from the counter-based PRG.
   dp_clip_noise_tree  the stacked-pytree front end the overlay calls.
 
-Same ``impl`` spellings and seed contract as the secure-agg ops.
+Same ``impl`` spellings, seed contract and `force_impl` override as the
+secure-agg ops.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ import torch
 from repro_torch.core.secure_agg import ravel_stacked
 from repro_torch.kernels.dp import kernel as _k
 from repro_torch.kernels.dp import ref as _ref
-from repro_torch.kernels.secure_agg.ops import normalize_seed, resolve_impl
+from repro_torch.kernels.secure_agg.ops import (  # noqa: F401 (force_impl)
+    force_impl, normalize_seed, resolve_impl,
+)
 
 
 def dp_clip_noise(updates: torch.Tensor, seed, clip_norm: float,

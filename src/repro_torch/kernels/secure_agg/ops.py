@@ -11,7 +11,8 @@
 accepts) name the CUDA kernel; "ref" the plain PyTorch version; "auto" the
 kernel for a CUDA tensor and the plain version for a CPU tensor.  The
 kernel wrappers themselves compute the plain version for CPU tensors, so
-"fused" on the CPU equals "ref".
+"fused" on the CPU equals "ref".  `force_impl` overrides what "auto"
+resolves to, here and in the DP ops; an explicit impl always wins.
 
 ``domain``: "float" cancels the pairwise masks to fp32 rounding; "int"
 runs the fixed-point Z_2^32 one-time pads (`field.py`), whose share-sum is
@@ -21,6 +22,9 @@ shared `ref.int_blend_rows`.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -28,6 +32,8 @@ from repro_torch.pytree import tree_flatten, tree_unflatten
 from repro_torch.kernels.secure_agg import field as _field
 from repro_torch.kernels.secure_agg import kernel as _k
 from repro_torch.kernels.secure_agg import ref as _ref
+
+_dispatch = threading.local()
 
 _VALID_IMPLS = ("fused", "pallas", "ref", "auto")
 _VALID_DOMAINS = ("float", "int")
@@ -70,8 +76,36 @@ def _check_domain(domain: str) -> None:
                          f"{_VALID_DOMAINS}")
 
 
+@contextlib.contextmanager
+def force_impl(impl):
+    """Thread-local override of what ``impl="auto"`` resolves to, for the
+    secure-agg and DP ops alike; an explicit `impl` argument always wins,
+    `None` is a no-op (caller code stays unconditional), and the outer
+    override comes back on the way out, an exception included.  The JAX
+    package's mesh engine forces "ref" once the institution axis spans
+    devices (its kernel needs the whole (P, N) in one core's VMEM); the
+    port's mesh engine gathers the whole (P, N) on every rank, so it
+    forces nothing.  On CUDA tensors, "ref" runs the plain PyTorch
+    version on the card, with no kernel, and the call site does not show
+    it: nothing in the port may set it (the tests use it)."""
+    prev = getattr(_dispatch, "forced", None)
+    _dispatch.forced = impl if impl is not None else prev
+    try:
+        yield
+    finally:
+        _dispatch.forced = prev
+
+
+def _auto_impl(default: str) -> str:
+    forced = getattr(_dispatch, "forced", None)
+    return forced if forced is not None else default
+
+
 def resolve_impl(impl: str) -> str:
-    """"fused" or "ref" for a valid impl spelling."""
+    """"fused" or "ref" for a valid impl spelling ("auto": the forced
+    impl, else "fused")."""
+    if impl == "auto":
+        impl = _auto_impl("fused")
     if impl not in _VALID_IMPLS:
         raise unknown_impl(impl)
     return "ref" if impl == "ref" else "fused"

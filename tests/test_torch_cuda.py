@@ -1302,3 +1302,102 @@ def test_dryrun_count_equals_flop_counter_on_the_card(cuda, arch):
     with FlopCounterMode(display=False) as fc:
         fn(*args)
     assert counts["matmul_flops"] == fc.get_total_flops()
+
+
+# ----------------------------------------------------------------------
+# mesh-parallel federations on the card: the institution axis over ranks
+
+_MESH_KERNELS = {"float": ("masked_rolling_update",),
+                 "int": ("masked_field_wsum",),
+                 "dp": ("masked_rolling_update", "clip_noise")}
+
+
+def _mesh_cnn(mode, device, mesh=None, P=8):
+    from repro_torch.core import ProtocolParams
+    return CNNFederation(
+        None, 0, n_institutions=P, device=device, mesh=mesh,
+        consensus_params=ProtocolParams.for_fleet(P),
+        secure_domain="int" if mode == "int" else "float",
+        dp=DPConfig(clip_norm=0.5, noise_multiplier=1.0)
+        if mode == "dp" else None)
+
+
+def _launch_counts():
+    return {"masked_rolling_update": agg_kernel.masked_rolling_update_flat
+            .launches, "masked_field_wsum": agg_kernel.masked_field_wsum_flat
+            .launches, "clip_noise": dp_kernel.clip_noise_flat.launches}
+
+
+def _reset_launches():
+    for w in (agg_kernel.masked_rolling_update_flat,
+              agg_kernel.masked_field_wsum_flat, dp_kernel.clip_noise_flat):
+        w.launches = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_one_rank_nccl_mesh_bit_identical_to_no_mesh(cuda, mode):
+    """A 1-rank NCCL ("inst",) mesh on the card: params, chain digest and
+    stats bit-identical to mesh=None, rows 1-3 launched on the mesh."""
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.sharding import make_institution_mesh
+    plain = _mesh_cnn(mode, cuda)
+    plain.run_rounds(2)
+    with process_group("nccl"):
+        fed = _mesh_cnn(mode, cuda, make_institution_mesh(1))
+        _reset_launches()
+        fed.run_rounds(2)
+        counts = _launch_counts()
+    for a, b in zip(tree_flatten(plain.stacked)[0],
+                    tree_flatten(fed.stacked)[0]):
+        assert _same_bits(a, b)
+    assert plain.chain_digest() == fed.chain_digest()
+    assert plain.overlay.stats == fed.overlay.stats
+    for name in _MESH_KERNELS[mode]:
+        assert counts[name] == 2, counts
+
+
+def _two_rank_body(rank, world_size, out_dir):
+    """One rank of the 2-rank gloo run sharing the card: the CNN in float
+    and the reference child's linear federation in int secure_mean, both
+    at P = 8 on the ("inst",) mesh; saves the states and launches."""
+    from _torch_mesh_child import run
+    from repro_torch.sharding import make_institution_mesh, rank_device
+    dev = rank_device("cuda")
+    mesh = make_institution_mesh(device=dev)
+    fed = _mesh_cnn("float", dev, mesh)
+    _reset_launches()
+    fed.run_rounds(2)
+    cnn_counts = _launch_counts()
+    _, linear, _ = run(8, "secure_mean", None, mesh, "int", device=dev)
+    torch.save({"cnn": [x.cpu() for x in tree_flatten(fed.stacked)[0]],
+                "cnn_counts": cnn_counts, "linear": linear,
+                "int_counts": _launch_counts(),
+                "stats": fed.overlay.stats,
+                "verified": fed.overlay.registry.verify_chain()},
+               f"{out_dir}/rank{rank}.pt")
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_mesh_on_card_matches_single_process(cuda, tmp_path):
+    """Two spawned ranks sharing the card over gloo, P = 8: the CNN's float
+    state within the reference's cross-layout bounds (rtol 2e-5, atol
+    1e-6) of the single-process run, the linear int secure_mean bit for
+    bit, each rank launching the kernels."""
+    from _torch_mesh_child import run
+    from repro_torch.launch.mesh import spawn_ranks
+    plain = _mesh_cnn("float", cuda)
+    plain.run_rounds(2)
+    _, linear, _ = run(8, "secure_mean", None, None, "int", device=cuda)
+    _cuda.build("secure_agg")              # the ranks only load it
+    spawn_ranks(_two_rank_body, 2, backend="gloo", args=(str(tmp_path),))
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+        for a, b in zip(got["cnn"], tree_flatten(plain.stacked)[0]):
+            torch.testing.assert_close(a, b.cpu(), rtol=2e-5, atol=1e-6)
+        for a, b in zip(got["linear"], linear):
+            np.testing.assert_array_equal(a, b)
+        assert got["stats"] == plain.overlay.stats
+        assert got["cnn_counts"]["masked_rolling_update"] == 2
+        assert got["int_counts"]["masked_field_wsum"] == 2
+    assert torch.load(tmp_path / "rank0.pt", weights_only=False)["verified"]

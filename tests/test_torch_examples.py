@@ -16,12 +16,14 @@ across by `repro_torch.convert.params_from_jax`:
     weight gradients differ by up to 5.5e-4 while every loss still agrees
     to 1e-7.  Each side's single steps agree to 2e-6.
 
-The other five run at their smallest flags on ``--device cpu``; without
-it each raises where there is no card.
+The other six run at their smallest flags on ``--device cpu``
+(`torch_scale_institutions` over two spawned gloo ranks); without it each
+raises where there is no card.
 """
 import dataclasses
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -47,6 +49,7 @@ def _example(name):
     path = os.path.join(EXAMPLES, f"torch_{name}.py")
     spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod    # spawned ranks unpickle by this name
     spec.loader.exec_module(mod)
     return mod
 
@@ -123,20 +126,29 @@ _SMALLEST = {
     "continuum_serve": ["--requests", "2", "--max-new", "1"],
     "device_tier_federation": ["--institutions", "2", "--devices", "8",
                                "--chunk", "4", "--rounds", "1"],
+    # two gloo ranks, each training 2 of the 4 hospitals
+    "scale_institutions": ["--world-size", "2", "--backend", "gloo",
+                           "--institutions", "4", "--rounds", "2",
+                           "--image-size", "8", "--batch", "2",
+                           "--local-steps", "1"],
 }
 _EXPECT = {
-    "chaos_federation": "DLT verified=True",
-    "adversarial_federation": "eps trace",
-    "personalized_federation": "personalization gain",
-    "continuum_serve": "inference report registered on DLT",
-    "device_tier_federation": "placement with device fan-in",
+    "chaos_federation": ("DLT verified=True",),
+    "adversarial_federation": ("eps trace",),
+    "personalized_federation": ("personalization gain",),
+    "continuum_serve": ("inference report registered on DLT",),
+    "device_tier_federation": ("placement with device fan-in",),
+    "scale_institutions": ("ranks: 2 (gloo, cpu)", "round 1:",
+                           "committed=True", "chain verified=True"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_SMALLEST))
 def test_example_runs_on_the_cpu(name):
     text = _example(name).main(_SMALLEST[name] + ["--device", "cpu"])
-    assert _EXPECT[name] in text
+    for want in _EXPECT[name]:
+        assert want in text, (want, text)
+    assert "committed=False" not in text or name != "scale_institutions"
 
 
 def test_list_flags_print_the_scenarios():

@@ -39,6 +39,7 @@ from repro_torch.core.registry import ModelRegistry, fingerprint_pytree
 from repro_torch.core.secure_agg import seed_from_key
 from repro_torch.pytree import tree_flatten
 from repro_torch.data.pipeline import DirichletPartitioner, SyntheticGlendaDataset
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.privacy.accountant import DPConfig
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -254,7 +255,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     root = os.path.abspath(os.path.join(SRC, os.pardir))
     scripts = [os.path.join(root, "chip_smoke.py")] + sorted(
         glob.glob(os.path.join(root, "examples", "torch_*.py")))
-    assert len(scripts) == 7, scripts
+    assert len(scripts) == 8, scripts
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
@@ -274,7 +275,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         ".core.scheduler', 'repro_torch.launch.train', 'repro_torch.launch"
         ".ehr_train', 'repro_torch.core.gossip', 'repro_torch.launch"
         ".analysis', 'repro_torch.launch.op_cost', 'repro_torch.launch"
-        ".dryrun'}\n"
+        ".dryrun', 'repro_torch.sharding.api', 'repro_torch.launch.mesh'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
@@ -291,13 +292,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_knobs_raise():
-    """Meshes are not ported (fault and attack schedules are:
-    tests/test_torch_chaos.py)."""
-    with pytest.raises(NotImplementedError):
-        CNNFederation(None, 0, n_institutions=2, device="cpu",
-                      mesh=object())
+    """Meshes are ported (tests/test_torch_mesh.py); one without an "inst"
+    axis raises ValueError from the harness and the overlay before any
+    round runs."""
+    mesh = MeshShape({"model": 1})
+    fed = CNNFederation(None, 0, n_institutions=2, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="inst"):
+        fed.run_rounds(1)
+    assert fed.overlay.round_index == 0 and not fed.overlay.gate.history
     ov = DecentralizedOverlay(OverlayConfig(n_institutions=2))
     stacked = {"w": torch.zeros((2, 3))}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="inst"):
         ov.run_rounds(stacked, (torch.zeros((1, 10, 2, 1)),), None,
-                      prng.PRNGKey(0), 1, mesh=object())
+                      prng.PRNGKey(0), 1, mesh=mesh)
+    assert ov.round_index == 0 and not ov.gate.history
