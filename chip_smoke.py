@@ -6,7 +6,7 @@
     python3 chip_smoke.py --turns PARENT  # two kernels vs a parent tree's
     python3 chip_smoke.py --training      # the training path alone
     python3 chip_smoke.py --families      # the MoE, audio, VLM paths alone
-    python3 chip_smoke.py --examples      # shim, examples, dry-run alone
+    python3 chip_smoke.py --examples      # shim, examples, dry-runs alone
     python3 chip_smoke.py --mesh          # the mesh path alone
 
 Builds the port's CUDA kernels from this checkout (each
@@ -119,7 +119,12 @@ after:
   real steps under ``FlopCounterMode`` (a qwen3-0.6b prefill of 1,024
   tokens, rwkv6-3b cut to 2 layers training on 256): equal matmul FLOPs,
   equal args bytes, and the predicted temp of a smollm-360m train step
-  beside ``torch.cuda.max_memory_allocated``.
+  beside ``torch.cuda.max_memory_allocated``; then the dry-run on the
+  production meshes (one combo on each of 16x16, 2x16x16 and
+  2x16x16+overlay, counted on fake 256- and 512-rank groups) and rank 0's
+  shards of a qwen3-0.6b decode step on a fake 256-rank ``cuda`` mesh,
+  allocated on the card and run: predicted args equal to the real
+  shards' bytes, outputs' local shapes equal to the count's.
 
 Before the full-width paths, small runs on the card are held against the
 same runs on the CPU (the CNN federation in each mode, under faults and
@@ -4624,9 +4629,117 @@ def dryrun_crosscheck(dev):
           "auto")
 
 
+# one cheap combo per production mesh: (arch, shape, lower_one flags)
+DRYRUN_MESH_COMBOS = (
+    ("hubert-xlarge", "prefill_32k", {"single_pod": True}),
+    ("hubert-xlarge", "prefill_32k", {"multi_pod": True}),
+    ("hubert-xlarge", "train_4k", {"multi_pod": True, "overlay": True}),
+)
+DRYRUN_MESH_CARD = ("qwen3-0.6b", "decode_32k")   # rank 0's shards on the card
+
+
+def rank0_shape(shape, placements, mesh_shape):
+    """Rank 0's shard of a tensor of global `shape` laid out by
+    `placements` over a mesh of `mesh_shape`, from the sizes alone: each
+    ``Shard(d)`` keeps the first ceil(n / k) of dim d's n, GSPMD's padded
+    share too."""
+    local = list(shape)
+    for k, p in zip(mesh_shape, placements):
+        if p.is_shard():
+            local[p.dim] = -(-local[p.dim] // k)
+    return tuple(local)
+
+
+def dryrun_mesh_path(dev):
+    """The dry-run on the production meshes (`launch.dryrun` with a mesh:
+    DTensors on a fake 256- or 512-rank group, counted as rank 0 runs
+    the step, collectives priced by link): one combo on each of 16x16,
+    2x16x16 and 2x16x16+overlay, its roofline lines printed.  Then the
+    card check: on a fake 256-rank mesh, rank 0's shards of a qwen3-0.6b
+    ``decode_32k`` serve step are allocated on the card and the step
+    runs there.  The count's per-device args must equal the real shards'
+    bytes and, leaf by leaf, the shards that each leaf's global shape and
+    its placements' mesh sizes give rank 0 (`rank0_shape`); the outputs'
+    local shapes must equal the count's; the predicted temp prints beside ``max_memory_allocated``.
+    A fake group's collectives move nothing, so only shapes and bytes
+    are checked, never values.  No kernel of ours runs here."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch.mesh import fake_production_mesh
+    from repro_torch.pytree import tree_map
+    from repro_torch.sharding.api import use_rules
+
+    for arch, shape_name, flags in DRYRUN_MESH_COMBOS:
+        roof, mem = dryrun.lower_one(arch, shape_name, **flags)
+        dryrun.print_roofline(f"{arch} x {shape_name} [{roof.mesh}]", roof,
+                              mem)
+        assert roof.n_chips == (512 if flags.get("multi_pod") else 256)
+        assert roof.collective_bytes_per_device > 0 and roof.flops_per_device > 0
+
+    arch, shape_name = DRYRUN_MESH_CARD
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    gen = torch.Generator(dev).manual_seed(0)
+    with fake_production_mesh() as mesh:
+        rules = dryrun.mesh_rules(mesh)
+        fn, meta_args = dryrun.mesh_step_and_args(cfg, shape, rules)
+        t0 = time.perf_counter()
+        counts, mem = dryrun.count_step(fn, meta_args, rules)
+        count_s = time.perf_counter() - t0
+
+        def real(t):
+            loc = op_cost.local(t)
+            if loc.is_floating_point():
+                x = 0.02 * torch.randn(loc.shape, generator=gen, device=dev,
+                                       dtype=loc.dtype)
+            else:
+                x = torch.randint(0, min(cfg.vocab_size, shape.seq_len),
+                                  loc.shape, generator=gen, device=dev,
+                                  dtype=loc.dtype)
+            return DTensor.from_local(x, mesh, t.placements, run_check=False,
+                                      shape=t.shape, stride=t.stride())
+        args = tree_map(real, meta_args)
+        real_args = dryrun._storage_bytes(args)
+        derived = 0
+        for t in op_cost.tensors(args):
+            want = rank0_shape(t.shape, t.placements, mesh.shape)
+            assert tuple(op_cost.local(t).shape) == want, (t.shape, want)
+            derived += math.prod(want) * t.element_size()
+        assert real_args == derived == mem["args"], (real_args, derived,
+                                                     mem)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with use_rules(rules), implicit_replication():
+            out = fn(*args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        got = [tuple(op_cost.local(t).shape) for t in op_cost.tensors(out)]
+        want = [tuple(op_cost.local(t).shape)
+                for t in op_cost.tensors(counts["out"])]
+        assert got == want, (got, want)
+        assert all(op_cost.local(t).is_cuda for t in op_cost.tensors(out))
+        real_out = dryrun._storage_bytes(out)
+        temp = counts["peak_bytes"] - mem["out"]
+        gib = 2.0 ** 30
+        print(f"dry-run mesh card check {arch} {shape_name} [16x16, rank 0 "
+              f"of 256 on the card]: args {mem['args']:,} B predicted == "
+              f"{real_args:,} B of real shards == {derived:,} B derived "
+              f"from the global shapes; {len(got)} outputs' local "
+              f"shapes equal the count's ({mem['out']:,} B predicted, "
+              f"{real_out:,} B real); temp predicted {temp / gib:.3f} GiB "
+              f"vs max_memory_allocated less args and outputs "
+              f"{(peak - real_out) / gib:.3f} GiB; count {count_s:.2f} s, "
+              f"step on the card {step_s:.2f} s")
+        del out, args
+
+
 def examples_alone(dev, t_start):
-    """`--examples`: the gossip shim, the torch examples and the
-    dry-run cross-check alone (after the build)."""
+    """`--examples`: the gossip shim, the torch examples, the dry-run
+    cross-check and the mesh dry-run alone (after the build)."""
     kernels = secure_agg_kernels(dev)
     lm = kernel_wrappers()
     totals = {name: 0 for name in kernels}
@@ -4634,6 +4747,7 @@ def examples_alone(dev, t_start):
     gossip_shim_path(dev, kernels, totals)
     examples_path(dev, kernels, lm, totals, launches)
     dryrun_crosscheck(dev)
+    dryrun_mesh_path(dev)
     print(f"examples alone: launches {totals} {launches}; took "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     return 0
@@ -4834,6 +4948,8 @@ def main() -> int:
     lap("examples_path")
     dryrun_crosscheck(dev)
     lap("dryrun_crosscheck")
+    dryrun_mesh_path(dev)
+    lap("dryrun_mesh_path")
     for name, n in list(totals.items()) + [
             (f"{k} P > 16", v) for k, v in totals_wide.items()]:
         assert n > 0, f"{name} never launched on the main path"

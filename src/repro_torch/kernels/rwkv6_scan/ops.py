@@ -25,9 +25,10 @@ def wkv6(r, k, v, w, u, s0, *, impl: str = "auto", block_t: int = 128):
     counter = op_cost.active()
     if counter is not None:
         return counter.region("wkv", _ref.wkv6_reference, (r, k, v, w, u, s0),
-                              time_args=(0, 1, 2, 3))
+                              time_args=(0, 1, 2, 3), layout="wkv")
     if impl == "auto":
         impl = "pallas" if r.device.type == "cuda" else "ref"
     if impl in ("ref", "plain"):
         return _ref.wkv6_reference(r, k, v, w, u, s0)
     return _k.wkv6_bthd(r, k, v, w, u, s0, block_t=block_t)
+

@@ -43,9 +43,11 @@ def _counted(counter, impl, a, bx, B, C, h0):
     one chunk at a time."""
     if impl == "ref":
         return counter.region("ssm", _ref.ssm_scan_reference,
-                              (a, bx, B, C, h0), time_args=(0, 1, 2, 3))
+                              (a, bx, B, C, h0), time_args=(0, 1, 2, 3),
+                              layout="ssm")
     from repro_torch.models.layers import _fit_chunk
     chunk = _fit_chunk(a.shape[1], 256)
     return counter.region("ssm", _ref.ssm_scan_chunked, (a, bx, B, C, h0),
                           {"chunk": chunk}, time_args=(0, 1, 2, 3),
-                          unit=chunk)
+                          unit=chunk, layout="ssm")
+

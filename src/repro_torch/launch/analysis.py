@@ -5,9 +5,15 @@ the op count of `launch.op_cost` (``analyze_ops``) instead of a compiled
 XLA module, and its constants are the card's,
 `continuum.resources.H100_SXM`: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM,
 450 GB/s NVLink one way.  Every number it gives is modelled from those
-constants, not measured.  The port runs on one card, so the collective
-terms are 0; the collective accounting comes with the meshes (ROADMAP
-queue A item 27).
+constants, not measured.
+
+Collectives.  Ranks lie row-major over the mesh, eight to an HGX H100
+node (node = rank // 8).  A collective whose group stays inside one node
+goes over NVLink at ``H100_SXM.ici_bandwidth``; one whose group crosses
+nodes goes at the node's per-GPU network rate, `NETWORK_BANDWIDTH`.  The
+16-wide "model" axis spans two nodes, so its collectives take the
+network.  The wire bytes of each kind and link are modelled (the ring
+formulas of `op_cost._wire_bytes`), not measured.
 """
 from __future__ import annotations
 
@@ -18,6 +24,24 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.continuum.resources import H100_SXM
 
 HBM_BYTES = H100_SXM.hbm_gb * 2**30      # the 80 GiB a step must fit
+GPUS_PER_NODE = 8                        # an HGX H100 node
+# One 400 Gb/s NDR InfiniBand port a GPU in an HGX H100 node (NVIDIA's
+# DGX H100 reference: 8 ConnectX-7 ports, one per GPU): 50 GB/s one way.
+NETWORK_BANDWIDTH = 400e9 / 8
+LINKS = ("nvlink", "network")
+
+
+def link_of(ranks) -> str:
+    """"nvlink" when every rank of the group sits in one node, else
+    "network"."""
+    return "nvlink" if len({r // GPUS_PER_NODE for r in ranks}) == 1 \
+        else "network"
+
+
+def link_bytes(collectives: Dict[str, Dict[str, float]]) -> Dict[str, float]:
+    """Wire bytes a device moves over each link, summed over the kinds."""
+    return {link: sum(v.get(link, 0.0) for v in collectives.values())
+            for link in LINKS}
 
 
 def model_flops(cfg: ModelConfig, shape: InputShape) -> float:
@@ -75,8 +99,15 @@ class Roofline:
         return (self.bytes_per_device - 0.95 * tagged) / H100_SXM.hbm_bandwidth
 
     @property
+    def t_collective_by_link(self) -> Dict[str, float]:
+        """Seconds of each link's wire bytes at its rate."""
+        b = link_bytes(self.collectives)
+        return {"nvlink": b["nvlink"] / H100_SXM.ici_bandwidth,
+                "network": b["network"] / NETWORK_BANDWIDTH}
+
+    @property
     def t_collective(self) -> float:
-        return self.collective_bytes_per_device / H100_SXM.ici_bandwidth
+        return sum(self.t_collective_by_link.values())
 
     @property
     def bottleneck(self) -> str:
@@ -108,7 +139,9 @@ class Roofline:
         d = dataclasses.asdict(self)
         d.update(t_compute=self.t_compute, t_memory=self.t_memory,
                  t_memory_kernel_adjusted=self.t_memory_kernel_adjusted,
-                 t_collective=self.t_collective, bottleneck=self.bottleneck,
+                 t_collective=self.t_collective,
+                 t_collective_by_link=self.t_collective_by_link,
+                 bottleneck=self.bottleneck,
                  useful_flops_ratio=self.useful_flops_ratio,
                  mfu_bound=self.mfu_bound, fits=self.fits)
         return d

@@ -2,7 +2,9 @@
 
 `make_overlay_mesh` builds the federation's ("inst", "data", "model")
 `DeviceMesh` over the world; `make_production_mesh` describes the
-reference's 256- and 512-device production meshes without devices;
+reference's 256- and 512-device production meshes without devices, and
+`fake_production_mesh` gives them as a `DeviceMesh` over a fake group,
+for the dry-run's per-device count;
 `process_group` and `spawn_ranks` start the ranks the meshes span.  A
 group starts from a store, never from a fixed TCP port: a `HashStore` for
 one rank, a `FileStore` under a fresh temporary directory for several,
@@ -20,6 +22,7 @@ import shutil
 import tempfile
 from typing import Dict, Tuple
 
+import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh
@@ -36,15 +39,118 @@ class MeshShape:
     shape: Dict[str, int]
 
 
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     """The reference's production mesh, (16, 16) ("data", "model") = 256
     devices a pod, or (2, 16, 16) ("pod", "data", "model") = 512, as a
-    device-free `MeshShape`: no machine here holds 256 cards.  It sizes
-    `LogicalRules` only; pricing the dry-run's steps on it (wire bytes of
-    its collectives, per-device shards) is the dry-run half of item 27."""
-    if multi_pod:
-        return MeshShape({"pod": 2, "data": 16, "model": 16})
-    return MeshShape({"data": 16, "model": 16})
+    device-free `MeshShape`: what `LogicalRules` sizes its guard from.
+    `fake_production_mesh` gives the same mesh with a (fake) group."""
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    return MeshShape(dict(zip(names, shape)))
+
+
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False, shape=None,
+                         names=None):
+    """The production mesh (or `shape` / `names`) as a `DeviceMesh` over a
+    fake process group, seen from rank 0, for the block's duration: one
+    process holds the 256 or 512 ranks' group, and DTensors on it carry
+    rank 0's shards.  A fake group's collectives move nothing, so their
+    values are garbage; on ``meta`` tensors they only give shapes.  Ranks
+    lie row-major over the mesh.  The group is the default group while
+    the block runs and is destroyed on the way out, an exception
+    included; entering with a default group already up raises.
+
+    The "fake" backend is registered by importing
+    ``torch.testing._internal.distributed.fake_pg``, here and only here
+    (torch keeps the backend in that testing module)."""
+    import torch.testing._internal.distributed.fake_pg as fake_pg
+
+    _squeeze_dims_strategy()
+    if shape is None:
+        shape, names = PRODUCTION_MESHES[multi_pod]
+    shape, names = tuple(shape), tuple(names)
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is up: the fake "
+                           "production mesh needs its own")
+    dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(shape),
+                          mesh_dim_names=names)
+        _scatter_strategy(mesh)
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _squeeze_dims_strategy() -> None:
+    """Give DTensor a sharding strategy for ``aten.squeeze.dims`` where
+    the torch release has none (2.11 has none; an unsqueeze's backward
+    under ``vmap`` dispatches it): a squeezed dim has size 1 and shards
+    nothing, every other dim keeps its shard, a partial sum stays one."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    op = torch.ops.aten.squeeze.dims
+    prop = DTensor._op_dispatcher.sharding_propagator
+    if op in prop.op_strategy_funcs or op in getattr(prop, "op_to_rules", {}):
+        return
+
+    @register_sharding(op)
+    def squeeze_dims(x, dims):
+        n = len(x.shape)
+        gone = {d % n for d in dims if x.shape[d] == 1}
+        out = [([Replicate()], [Replicate(), None]),
+               ([Partial()], [Partial(), None])]
+        for d in range(n):
+            if d not in gone:
+                out.append(([Shard(d - sum(g < d for g in gone))],
+                            [Shard(d), None]))
+        return out
+
+
+def _scatter_strategy(mesh) -> None:
+    """Give DTensor a sharded strategy for ``aten.scatter`` where the
+    torch release replicates every scatter (2.11 does): the MoE's
+    capacity scatter would then gather every group's buffer to every
+    rank, where GSPMD keeps the groups apart.  A dim other than the
+    scatter's, on which input, index and src agree in size, is sharded
+    alike on all three and the scatter stays local, as later releases'
+    own strategy allows.  Probed on `mesh` once a process."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import register_sharding
+    pl = (Shard(0),) + (Replicate(),) * (mesh.ndim - 1)
+    x = distribute_tensor(torch.empty(2 * mesh.size(0), 2, device="meta"),
+                          mesh, pl)
+    i = distribute_tensor(torch.zeros(x.shape, dtype=torch.long,
+                                      device="meta"), mesh, pl)
+    if x.scatter(1, i, x).placements == pl:
+        return
+
+    @register_sharding([torch.ops.aten.scatter.src,
+                        torch.ops.aten.scatter.value])
+    def scatter(inp, dim, index, src):
+        tensor_src = not isinstance(src, (int, float, bool))
+        extra = [Replicate()] if tensor_src else [None]
+        out = [([Replicate()], [Replicate(), None, Replicate()] + extra)]
+        n = len(inp.shape)
+        if len(index.shape) != n:
+            return out
+        for d in range(n):
+            if (d == dim % n or inp.shape[d] != index.shape[d]
+                    or (tensor_src and src.shape[d] != index.shape[d])):
+                continue
+            out.append(([Shard(d)], [Shard(d), None, Shard(d)]
+                        + ([Shard(d)] if tensor_src else [None])))
+        return out
 
 
 def make_rules(mesh, *, multi_pod: bool = False) -> LogicalRules:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import logical_shard, merge_last, split_last
 from repro_torch.models import transformer as TF
 
 Params = Dict[str, Any]
@@ -94,6 +95,7 @@ def _mamba_branch(cfg, p, h, ssm_h0, impl: str = "auto"):
     di = cfg.ssm_expand * d
     zx = h @ p["in_proj"].to(h.dtype)
     z, xin = zx[..., :di], zx[..., di:]                 # (B,T,di) each
+    xin = logical_shard(xin, "batch", "seq", "mlp")
     dt = F.softplus(xin.float() * p["w_dt"] + p["dt_bias"])
     A = -torch.exp(p["a_log"].float())                  # (di,) negative
     a = torch.exp(dt * A)                               # (B,T,di)
@@ -116,27 +118,30 @@ def _fuse(cfg, p, x, attn, ssm):
                    @ p["wo_ssm"].to(x.dtype))
     x = x + fused
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + L.ffn_swiglu(h, p["wi_gate"], p["wi_up"], p["wo_ffn"])
+    x = x + L.ffn_swiglu(h, p["wi_gate"], p["wi_up"], p["wo_ffn"])
+    return logical_shard(x, "batch", "seq", "embed")
 
 
 def _qkv(cfg, p, h, positions):
-    B, T, _ = h.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, T, hq, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, T, hkv, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, T, hkv, hd)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q = split_last(h @ p["wq"].to(h.dtype), hq, "batch", "seq", "heads",
+                   None)
+    k = split_last(h @ p["wk"].to(h.dtype), hkv, "batch", "seq",
+                   "kv_heads", None)
+    v = split_last(h @ p["wv"].to(h.dtype), hkv, "batch", "seq",
+                   "kv_heads", None)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_style)
     return q, k, v
 
 
 def _hybrid_block(cfg, p, x, positions, ssm_h0, impl, collect_kv=False):
-    B, T, _ = x.shape
     h = L.rms_norm(x, p["in_norm"], cfg.norm_eps)
     # attention branch
     q, k, v = _qkv(cfg, p, h, positions)
-    attn = L.attention(q, k, v, causal=True, window=cfg.attn_window,
-                       impl=impl).reshape(B, T, -1)
+    attn = merge_last(L.attention(q, k, v, causal=True,
+                                  window=cfg.attn_window, impl=impl),
+                      "batch", "seq", "heads", None)
     # mamba branch (parallel, same input: hymba's "hybrid heads")
     ssm, h_last = _mamba_branch(cfg, p, h, ssm_h0, impl)
     x = _fuse(cfg, p, x, attn, ssm)
@@ -149,10 +154,10 @@ def _embed_with_meta(cfg: ModelConfig, params: Params, tokens):
     """(x (B, 128 + T, d) with the meta tokens first, positions, h0)."""
     B = tokens.shape[0]
     di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
-    x = F.embedding(tokens, params["embed"]).to(L.COMPUTE_DTYPE)
+    x = L.embed(tokens, params["embed"]).to(L.COMPUTE_DTYPE)
     meta = params["meta_tokens"].to(x.dtype)[None].expand(
         B, N_META_TOKENS, cfg.d_model)
-    x = torch.cat([meta, x], dim=1)
+    x = logical_shard(torch.cat([meta, x], dim=1), "batch", "seq", "embed")
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -184,7 +189,7 @@ def forward(cfg: ModelConfig, params: Params, batch, *, impl: str = "auto",
             remat: bool = False):
     x, aux, head = forward_features(cfg, params, batch, impl=impl,
                                     remat=remat)
-    return x @ head.to(x.dtype), aux
+    return logical_shard(x @ head.to(x.dtype), "batch", "seq", "vocab"), aux
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, cache_seq_len: int,
@@ -208,7 +213,8 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_seq_len: int,
     state["pos"][:, :, slots] = pos_tail
     x = x[:, N_META_TOKENS:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = logical_shard(x @ params["lm_head"].to(x.dtype), "batch", "seq",
+                           "vocab")
     return logits, state, L.zero_aux(x.device)
 
 
@@ -246,8 +252,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     """tokens: (B,) int; pos: (B,) position of the new token among the
     prompt's (the meta tokens shift it by 128 in the cache).  Returns
     (logits (B,V), new state); `state` is not written."""
-    B = tokens.shape[0]
-    x = F.embedding(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
+    x = L.embed(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
     abs_pos = pos + N_META_TOKENS
     positions = abs_pos[:, None]
     ks, vs, ps, ssms = [], [], [], []
@@ -258,7 +263,8 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
                                     state["pos"][i], k, v, abs_pos)
         attn = L.decode_attention(q, kc, vc, pc, window=cfg.attn_window)
         ssm, h_new = _mamba_branch(cfg, p, h, state["ssm"][i], "auto")
-        x = _fuse(cfg, p, x, attn.reshape(B, 1, -1), ssm)
+        x = _fuse(cfg, p, x, merge_last(attn, "batch", "seq", "heads", None),
+                  ssm)
         ks.append(kc)
         vs.append(vc)
         ps.append(pc)

@@ -29,6 +29,9 @@ import torch.nn.functional as F
 
 from repro_torch.launch import op_cost
 from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.sharding.api import (
+    gather_fsdp, last_dim_sharded, logical_shard, reduce_partial, relayout,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -92,7 +95,7 @@ def unstack_layers(block):
     layers' gradients once, where indexing one layer at a time would make
     each layer's gradient a zero-filled copy of the whole stack."""
     names = list(block)
-    return [dict(zip(names, ws))
+    return [{n: gather_fsdp(w) for n, w in zip(names, ws)}
             for ws in zip(*(block[n].unbind(0) for n in names))]
 
 
@@ -162,13 +165,22 @@ def recompute(fn, *args):
     return tree_unflatten(out_spec[0], list(out))
 
 
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding``.  On a mesh the table comes with its FSDP rows
+    gathered, as a layer's weights do (`sharding.api.gather_fsdp`), and
+    where its vocab axis splits it the lookup is a masked partial sum,
+    reduced here while it keeps the tokens' rank: DTensor reduces it by
+    the tokens' mask, which a later reshape or redistribution breaks."""
+    return reduce_partial(F.embedding(tokens, gather_fsdp(table)))
+
+
 # ======================================================================
 # Norms / activations
 # ======================================================================
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = reduce_partial(x).float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dtype)
@@ -358,7 +370,8 @@ def attention(q, k, v, *, causal=True, window=0, impl="auto",
                                   _fit_chunk(kv_len, 1024))
         return counter.region("attention", mha_one_shot, (q, k, v),
                               dict(causal=causal, window=window,
-                                   kv_len=kv_len))
+                                   kv_len=kv_len),
+                              layout="attention")
     if impl in ("pallas", "fused"):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -381,11 +394,12 @@ def decode_attention(q, k_cache, v_cache, cache_positions, *,
                      window: int = 0):
     """One-token attention. q: (B,1,Hq,hd); caches: (B,W,Hkv,hd);
     cache_positions: (B,W) absolute positions, -1 = empty slot."""
+    args = (q, k_cache, v_cache, cache_positions)
     counter = op_cost.active()
     if counter is not None:
-        return counter.region("attention", _decode_attention_impl,
-                              (q, k_cache, v_cache, cache_positions))
-    return _decode_attention_impl(q, k_cache, v_cache, cache_positions)
+        return counter.region("attention", _decode_attention_impl, args,
+                              layout="decode_attention")
+    return _decode_attention_impl(*relayout(args, "decode_attention"))
 
 
 def _decode_attention_impl(q, k_cache, v_cache, cache_positions):
@@ -430,10 +444,37 @@ def cache_update(k_cache, v_cache, cache_positions, k_new, v_new, pos):
 
 
 # ======================================================================
+# Token cross-entropy
+# ======================================================================
+def _take(logits, labels):
+    return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """A token's cross-entropy, ``logsumexp(logits) - logits[labels]``
+    over the last dim.  Over a vocab split across a mesh: the logsumexp
+    as its parts, a max and a sum, so that DTensor reduces two small
+    partials instead of gathering the vocab (the max is a constant of
+    the gradient, so it is detached); and in a count the gold logit is a
+    region on rank 0's shards, since a gather across the vocab's shards
+    is a masked partial sum whose backward, a scatter into zeros, would
+    run on the whole batch and vocab through DTensor."""
+    if not last_dim_sharded(logits):
+        return torch.logsumexp(logits, dim=-1) - _take(logits, labels)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+    counter = op_cost.active()
+    if counter is None:
+        return lse - _take(logits, labels)
+    return lse - counter.region(None, _take, (logits, labels), layout="gold")
+
+
+# ======================================================================
 # Dense FFN
 # ======================================================================
 def ffn_swiglu(x, wi_gate, wi_up, wo):
     h = swiglu(x @ wi_gate.to(x.dtype), x @ wi_up.to(x.dtype))
+    h = logical_shard(h, "batch", "seq", "mlp")
     return h @ wo.to(x.dtype)
 
 
@@ -522,10 +563,16 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     the reference."""
     E = router_w.shape[-1]
     C = moe_capacity(x.shape[1], E, top_k, capacity_factor)
+    x = logical_shard(x, "expert_batch", None, None)
     buf, _, dest, order, _, gate, aux = _moe_dispatch(
         x, router_w, top_k=top_k, capacity=C)
+    buf = logical_shard(buf, "expert_batch", "experts", None, None)
     h = torch.einsum("gecd,edf->gecf", buf, w_gate.to(x.dtype))
     u = torch.einsum("gecd,edf->gecf", buf, w_up.to(x.dtype))
-    eo = torch.einsum("gecf,efd->gecd", swiglu(h, u), w_down.to(x.dtype))
+    eo = torch.einsum("gecf,efd->gecd", logical_shard(
+        swiglu(h, u), "expert_batch", "experts", None, "mlp"),
+        w_down.to(x.dtype))
+    eo = logical_shard(eo, "expert_batch", "experts", None, None)
     out = _moe_combine(eo, dest, order, gate, top_k=top_k)
-    return out, {k: v.mean() for k, v in aux.items()}
+    out = logical_shard(out, "expert_batch", None, None)
+    return out, {k: reduce_partial(v.mean()) for k, v in aux.items()}

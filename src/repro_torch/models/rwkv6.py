@@ -32,6 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import (
+    logical_shard, merge_last, mesh_rules_for, split_last,
+)
 
 Params = Dict[str, Any]
 LORA_MIX = 32
@@ -87,7 +90,7 @@ def _ddlerp(x, shifted, p):
     delta = shifted - x
     xx = x + delta * p["mu_x"].to(x.dtype)
     lo = torch.tanh(xx @ p["mix_A"].to(x.dtype))
-    lo = lo.reshape(*lo.shape[:-1], 5, LORA_MIX)
+    lo = split_last(lo, 5, "batch", "seq", None, None)
     offs = torch.einsum("...ke,ked->...kd", lo, p["mix_B"].to(x.dtype))
     mus = p["mu_rkvwg"].to(x.dtype) + offs                  # (..., 5, d)
     return tuple(x + delta * mus[..., i, :] for i in range(5))
@@ -104,28 +107,33 @@ def _decay(x_w, p):
 def _group_norm(x, scale, H, eps=1e-5):
     """GroupNorm over heads: x (..., d) viewed as (..., H, hd), with the
     population variance, as ``jnp.var``."""
-    shp = x.shape
-    xh = x.reshape(*shp[:-1], H, shp[-1] // H).float()
+    xh = split_last(x, H, "batch", "seq", "heads", None).float()
     mean = xh.mean(-1, keepdim=True)
     var = xh.var(-1, keepdim=True, correction=0)
     xh = (xh - mean) * torch.rsqrt(var + eps)
-    return (xh.reshape(shp) * scale.float()).to(x.dtype)
+    xh = merge_last(xh, "batch", "seq", "heads", None)
+    return (xh * scale.float()).to(x.dtype)
 
 
 def _time_mix(cfg: ModelConfig, p, x, shifted, wkv_state, impl: str):
-    B, T, d = x.shape
-    H, hd = cfg.n_wkv_heads, cfg.wkv_head_dim
+    H = cfg.n_wkv_heads
     x_r, x_k, x_v, x_w, x_g = _ddlerp(x, shifted, p)
-    r = (x_r @ p["wr"].to(x.dtype)).reshape(B, T, H, hd)
-    k = (x_k @ p["wk"].to(x.dtype)).reshape(B, T, H, hd)
-    v = (x_v @ p["wv"].to(x.dtype)).reshape(B, T, H, hd)
+    r = split_last(x_r @ p["wr"].to(x.dtype), H, "batch", "seq", "heads",
+                   None)
+    k = split_last(x_k @ p["wk"].to(x.dtype), H, "batch", "seq", "heads",
+                   None)
+    v = split_last(x_v @ p["wv"].to(x.dtype), H, "batch", "seq", "heads",
+                   None)
     g = F.silu(x_g @ p["wg"].to(x.dtype))
-    w = _decay(x_w, p).reshape(B, T, H, hd)
+    w = split_last(_decay(x_w, p), H, "batch", "seq", "heads", None)
+    r = logical_shard(r, "batch", "seq", "heads", None)
+    k = logical_shard(k, "batch", "seq", "heads", None)
 
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     y, new_state = wkv_ops.wkv6(r, k, v, w, p["u"].float(), wkv_state,
                                 impl=impl)
-    y = _group_norm(y.reshape(B, T, d), p["ln_x"], H)
+    y = _group_norm(merge_last(y, "batch", "seq", "heads", None),
+                    p["ln_x"], H)
     return (y * g) @ p["wo"].to(x.dtype), new_state
 
 
@@ -134,17 +142,23 @@ def _channel_mix(p, x, shifted):
     xk = x + delta * p["mu_ck"].to(x.dtype)
     xr = x + delta * p["mu_cr"].to(x.dtype)
     k = torch.square(F.relu(xk @ p["w_ck"].to(x.dtype)))
+    k = logical_shard(k, "batch", "seq", "mlp")
     return torch.sigmoid(xr @ p["w_cr"].to(x.dtype)) * (
         k @ p["w_cv"].to(x.dtype))
 
 
 def _shift_seq(x):
-    """x_{t-1} along time (zeros at t=0)."""
+    """x_{t-1} along time (zeros at t=0).  On a mesh, as a concatenation:
+    some torch releases' DTensor cannot plan the redistribution that a
+    pad of a batch-sharded tensor asks for."""
+    if mesh_rules_for(x) is not None:
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens):
-    x = F.embedding(tokens, params["embed"]).to(L.COMPUTE_DTYPE)
+    x = L.embed(tokens, params["embed"]).to(L.COMPUTE_DTYPE)
+    x = logical_shard(x, "batch", "seq", "embed")
     B = tokens.shape[0]
     s0 = torch.zeros((B, cfg.n_wkv_heads, cfg.wkv_head_dim,
                       cfg.wkv_head_dim), dtype=torch.float32,
@@ -160,7 +174,7 @@ def _block(cfg: ModelConfig, p: Params, x, s0, impl: str):
     x = x + tm
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + _channel_mix(p, h2, _shift_seq(h2))
-    return x, S_new, h1, h2
+    return logical_shard(x, "batch", "seq", "embed"), S_new, h1, h2
 
 
 # ======================================================================
@@ -184,7 +198,7 @@ def forward(cfg: ModelConfig, params: Params, batch, *, impl: str = "auto",
             remat: bool = False):
     x, aux, head = forward_features(cfg, params, batch, impl=impl,
                                     remat=remat)
-    return x @ head.to(x.dtype), aux
+    return logical_shard(x @ head.to(x.dtype), "batch", "seq", "vocab"), aux
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, cache_seq_len: int,
@@ -199,7 +213,8 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_seq_len: int,
         st.append(h1[:, -1].to(L.COMPUTE_DTYPE))
         sc.append(h2[:, -1].to(L.COMPUTE_DTYPE))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = logical_shard(x @ params["lm_head"].to(x.dtype), "batch", "seq",
+                           "vocab")
     return logits, {"wkv": torch.stack(wkv), "shift_t": torch.stack(st),
                     "shift_c": torch.stack(sc)}, L.zero_aux(x.device)
 
@@ -234,7 +249,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     """tokens: (B,) int; pos: (B,) (unused: the state carries the
     position).  Returns (logits (B,V), new state); `state` is not
     written."""
-    x = F.embedding(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
+    x = L.embed(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
     wkv, st, sc = [], [], []
     for i, p in enumerate(L.unstack_layers(params["block"])):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)

@@ -22,10 +22,10 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import logical_shard, merge_last, split_last
 
 Params = Dict[str, Any]
 
@@ -79,21 +79,25 @@ def param_specs(cfg: ModelConfig) -> Params:
 def _attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      positions: torch.Tensor, impl: str,
                      return_kv: bool = False):
-    B, S, d = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, hq, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, hkv, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, hkv, hd)
+    q = split_last(h @ p["wq"].to(h.dtype), hq, "batch", "seq", "heads",
+                   None)
+    k = split_last(h @ p["wk"].to(h.dtype), hkv, "batch", "seq",
+                   "kv_heads", None)
+    v = split_last(h @ p["wv"].to(h.dtype), hkv, "batch", "seq",
+                   "kv_heads", None)
     if cfg.qk_norm:
         q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     if not cfg.encoder_only:          # the encoder (hubert) has no rope
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_style)
+    q = logical_shard(q, "batch", "seq", "heads", None)
+    k = logical_shard(k, "batch", "seq", "kv_heads", None)
     out = L.attention(q, k, v, causal=cfg.causal, window=cfg.attn_window,
                       impl=impl)
-    out = out.reshape(B, S, hq * hd)
+    out = merge_last(out, "batch", "seq", "heads", None)
     x = x + out @ p["wo"].to(x.dtype)
     if return_kv:
         return x, (k.to(L.COMPUTE_DTYPE), v.to(L.COMPUTE_DTYPE))
@@ -123,6 +127,7 @@ def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
         x = _attention_block(cfg, p, x, positions, impl)
         kv = None
     x, aux = _ffn_block(cfg, p, x)
+    x = logical_shard(x, "batch", "seq", "embed")
     return (x, aux, kv) if collect_kv else (x, aux)
 
 
@@ -146,15 +151,15 @@ def embed_inputs(cfg: ModelConfig, params: Params,
     if cfg.modality == "audio":
         x = batch["frame_embeddings"].to(L.COMPUTE_DTYPE)
     elif cfg.modality == "vlm":
-        tok = F.embedding(batch["tokens"], params["embed"])
+        tok = L.embed(batch["tokens"], params["embed"])
         x = torch.cat([batch["patch_embeddings"].to(L.COMPUTE_DTYPE),
                        tok.to(L.COMPUTE_DTYPE)], dim=1)
     else:
-        x = F.embedding(batch["tokens"], params["embed"]).to(L.COMPUTE_DTYPE)
+        x = L.embed(batch["tokens"], params["embed"]).to(L.COMPUTE_DTYPE)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    return x, positions
+    return logical_shard(x, "batch", "seq", "embed"), positions
 
 
 def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -163,7 +168,8 @@ def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(cfg, params).to(x.dtype)
+    return logical_shard(x @ _head(cfg, params).to(x.dtype), "batch", "seq",
+                         "vocab")
 
 
 # ======================================================================
@@ -195,7 +201,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x, aux, head = forward_features(cfg, params, batch, impl=impl,
                                     remat=remat)
-    return x @ head.to(x.dtype), aux
+    return logical_shard(x @ head.to(x.dtype), "batch", "seq", "vocab"), aux
 
 
 # ======================================================================
@@ -258,16 +264,19 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """tokens: (B,) int; pos: (B,) absolute position of the new token.
     Returns (logits (B,V), new state); `state` is not written."""
-    B = tokens.shape[0]
-    x = F.embedding(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
+    x = L.embed(tokens, params["embed"])[:, None].to(L.COMPUTE_DTYPE)
+    x = logical_shard(x, "batch", "seq", "embed")
     positions = pos[:, None]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
     ks, vs, ps = [], [], []
     for i, p in enumerate(L.unstack_layers(params["block"])):
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, hq, hd)
-        k = (h @ p["wk"].to(h.dtype)).reshape(B, 1, hkv, hd)
-        v = (h @ p["wv"].to(h.dtype)).reshape(B, 1, hkv, hd)
+        q = split_last(h @ p["wq"].to(h.dtype), hq, "batch", "seq", "heads",
+                       None)
+        k = split_last(h @ p["wk"].to(h.dtype), hkv, "batch", "seq",
+                       "kv_heads", None)
+        v = split_last(h @ p["wv"].to(h.dtype), hkv, "batch", "seq",
+                       "kv_heads", None)
         if cfg.qk_norm:
             q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -276,7 +285,8 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
         kc, vc, pc = L.cache_update(state["k"][i], state["v"][i],
                                     state["pos"][i], k, v, pos)
         out = L.decode_attention(q, kc, vc, pc, window=cfg.attn_window)
-        x = x + out.reshape(B, 1, hq * hd) @ p["wo"].to(x.dtype)
+        out = merge_last(out, "batch", "seq", "heads", None)
+        x = x + out @ p["wo"].to(x.dtype)
         x, _ = _ffn_block(cfg, p, x)
         ks.append(kc)
         vs.append(vc)

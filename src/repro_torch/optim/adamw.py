@@ -4,8 +4,8 @@ The state mirrors the param tree: fp32 moments ``m`` and ``v`` and an
 int32 step ``count``.  The update is computed in fp32 and cast back to
 each param's dtype.  `optimizer_abstract_state` and
 `optimizer_state_axes` describe the state without allocating it, for
-the dry-run; placing it on a mesh goes with the meshes (ROADMAP queue A
-item 27).
+the dry-run, which lays the state out on a mesh by the params' axes
+(`launch.dryrun.mesh_step_and_args`).
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ from repro_torch.optim import (
     AdamWConfig, adamw_init, adamw_update, linear_warmup_cosine,
 )
 from repro_torch.pytree import tree_map
+from repro_torch.sharding.api import logical_shard
 
 Pytree = Any
 
@@ -85,9 +86,7 @@ def _labels_and_logits(cfg: ModelConfig, logits, batch):
 
 def _chunk_nll(x_c, head, lab_c):
     logits = (x_c @ head).float()                         # (B, c, V)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab_c[..., None].long())[..., 0]
-    return lse - gold
+    return L.token_nll(logits, lab_c)
 
 
 def _fused_nll(features, head, labels, mask, chunk: int):
@@ -99,7 +98,7 @@ def _fused_nll(features, head, labels, mask, chunk: int):
     stays transient under grad."""
     S = features.shape[1]
     c = L._fit_chunk(S, chunk)
-    head = head.to(features.dtype)
+    head = logical_shard(head.to(features.dtype), None, "vocab")
     nll = torch.cat([L.recompute(_chunk_nll, features[:, i:i + c], head,
                                  labels[:, i:i + c])
                      for i in range(0, S, c)], dim=1)
@@ -124,9 +123,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig
                                          remat=tcfg.remat)
             logits, labels, mask = _labels_and_logits(cfg, logits, batch)
             logits = logits.float()
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-            nll = (logz - gold) * mask
+            nll = L.token_nll(logits, labels) * mask
         denom = torch.clamp(mask.sum(), min=1)
         loss = nll.sum() / denom
         loss = loss + cfg.router_aux_weight * aux["load_balance"]

@@ -293,15 +293,6 @@ def test_roofline_terms_follow_from_h100_constants():
     assert rec["mfu_bound"] == roof.mfu_bound and rec["fits"] is True
 
 
-@pytest.mark.parametrize("flag", ["--multi-pod", "--overlay", "--pad-heads"])
-def test_mesh_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 27"):
-        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "train_4k", flag])
-    with pytest.raises(NotImplementedError, match="item 27"):
-        dryrun.lower_one("qwen3-0.6b", "train_4k",
-                         **{flag[2:].replace("-", "_"): True})
-
-
 def test_dryrun_main_on_one_combo_and_a_skip(capsys):
     recs = dryrun.main(["--arch", "rwkv6-3b", "--shape", "decode_32k"])
     out = capsys.readouterr().out
